@@ -1,0 +1,162 @@
+"""tpugs_torch binning (expand kernel's plain version + torch.sort) against
+tpugs' binning with its Pallas expand kernel in interpret mode: the sorted
+per-tile segments are bit-identical for the presorted and 2-key sorts,
+overflow truncation included; the qkey sort holds the same key sequence
+and the same gids per tile."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.torch_parity import (assert_segments_equal, jax_projection, np_,
+                                random_projection, segments, torch_projection)
+from tpugs.ops import binning as JB
+from tpugs.ops.pallas import expand as JEX
+from tpugs_torch.ops import binning as TB
+from tpugs_torch.ops import expand as TEX
+
+torch.set_num_threads(1)
+
+SHAPES = [(64, 48, 16), (96, 64, 32)]
+CAP = 8192
+
+
+def _inputs(w, h, seed, **kw):
+    d = random_projection(300, w, h, seed, **kw)
+    return jax_projection(d), torch_projection(d)
+
+
+def _num_tiles(w, h, tile):
+    return (-(-w // tile)) * (-(-h // tile))
+
+
+@pytest.mark.parametrize("w,h,tile", SHAPES)
+def test_rects_and_cull_radius(w, h, tile):
+    jp, tp = _inputs(w, h, 0)
+    r2_j, r2_t = JB.cull_radius_sq(jp), TB.cull_radius_sq(tp)
+    # log() is XLA's polynomial on one side and torch's on the other: they
+    # differ by an ulp on a few inputs.
+    np.testing.assert_allclose(np_(r2_t), np_(r2_j), rtol=3e-7)
+    for a, b in zip(TB.tile_rects(tp, w, h, tile, tile, r2_t),
+                    JB.tile_rects(jp, w, h, tile, tile, r2_j)):
+        np.testing.assert_array_equal(np_(a)[np_(tp.visible)],
+                                      np_(b)[np_(tp.visible)])
+
+
+@pytest.mark.parametrize("w,h,tile", SHAPES)
+@pytest.mark.parametrize("seed,cap,big", [(0, CAP, False), (3, CAP, True),
+                                          (5, None, True)])
+def test_two_key_sort_bit_identical(w, h, tile, seed, cap, big):
+    """The 2-key (tile, depth, gid) path; cap None = half the pairs, so the
+    back half is dropped (overflow)."""
+    jp, tp = _inputs(w, h, seed, big_rects=big)
+    total = TB.expand_inputs(tp, w, h, tile, tile, CAP).total
+    overflow = cap is None
+    cap = total // 2 if overflow else cap
+    ref = JB.bin_gaussians_expand_kernel(jp, w, h, tile, tile, cap,
+                                         interpret=True)
+    got = TB.bin_gaussians_expand_kernel(tp, w, h, tile, tile, cap)
+    nt = _num_tiles(w, h, tile)
+    assert_segments_equal(ref, got, nt)
+    assert bool(got.overflow) == overflow
+    # The oracle of both packages agrees too.
+    assert_segments_equal(JB.bin_gaussians(jp, w, h, tile, tile, cap),
+                          TB.bin_gaussians(tp, w, h, tile, tile, cap), nt)
+    assert_segments_equal(got, TB.bin_gaussians(tp, w, h, tile, tile, cap), nt)
+
+
+@pytest.mark.parametrize("w,h,tile", SHAPES)
+@pytest.mark.parametrize("overflow", [False, True])
+def test_presorted_bit_identical(w, h, tile, overflow):
+    jp, tp = _inputs(w, h, 1, big_rects=True)
+    cap = TB.expand_inputs(tp, w, h, tile, tile, CAP).total // 2 if overflow else CAP
+    perm_j, jps = JB.presort_by_depth(jp)
+    perm_t, tps = TB.presort_by_depth(tp)
+    np.testing.assert_array_equal(np_(perm_t), np_(perm_j))
+    ref = JB.bin_gaussians_expand_kernel(jps, w, h, tile, tile, cap,
+                                         interpret=True, presorted=True)
+    got = TB.bin_gaussians_expand_kernel(tps, w, h, tile, tile, cap,
+                                         presorted=True)
+    nt = _num_tiles(w, h, tile)
+    assert_segments_equal(ref, got, nt)
+    assert bool(got.overflow) == overflow
+    assert_segments_equal(
+        JB.bin_gaussians(jps, w, h, tile, tile, cap, presorted=True),
+        TB.bin_gaussians(tps, w, h, tile, tile, cap, presorted=True), nt)
+
+
+def _qbins(proj, w, h, tile):
+    ex = TB.expand_inputs(proj, w, h, tile, tile, CAP, quant_key_bits=32)
+    return np_(ex.ftab[3]), ex.qbits
+
+
+@pytest.mark.parametrize("w,h,tile", SHAPES)
+def test_qkey_same_keys_and_gids_per_tile(w, h, tile):
+    jp, tp = _inputs(w, h, 2, big_rects=True, ties=True)
+    ref = JB.bin_gaussians_expand_kernel(jp, w, h, tile, tile, CAP,
+                                         interpret=True, quant_key_bits=32)
+    got = TB.bin_gaussians_expand_kernel(tp, w, h, tile, tile, CAP,
+                                         quant_key_bits=32)
+    bins, qbits = _qbins(tp, w, h, tile)
+    nt = _num_tiles(w, h, tile)
+    assert qbits == min(22, 32 - nt.bit_length())
+    np.testing.assert_array_equal(np_(got.tile_stop) - np_(got.tile_start),
+                                  np_(ref.tile_stop) - np_(ref.tile_start))
+    for t, (a, b) in enumerate(zip(segments(ref, nt), segments(got, nt))):
+        np.testing.assert_array_equal(bins[a], bins[b], err_msg=f"tile {t}")
+        assert np.all(np.diff(bins[b]) >= 0)
+        np.testing.assert_array_equal(np.sort(a), np.sort(b), err_msg=f"tile {t}")
+    assert int(got.num_pairs) == int(ref.num_pairs)
+
+
+def test_qkey_bins_match_reference_formula():
+    """The depth bins are the reference's f32 formula, bit for bit."""
+    w, h, tile = 96, 64, 16
+    jp, tp = _inputs(w, h, 4)
+    bins, qbits = _qbins(tp, w, h, tile)
+    nbins = 1 << qbits
+    d, vis = jp.depths, jp.visible
+    dmin = jnp.min(jnp.where(vis, d, jnp.inf))
+    dmax = jnp.max(jnp.where(vis, d, -jnp.inf))
+    scale = (nbins - 1) / jnp.maximum(dmax - dmin, 1e-12)
+    ref = jnp.floor(jnp.clip((d - dmin) * scale, 0, nbins - 1))
+    np.testing.assert_array_equal(bins, np.asarray(ref))
+
+
+def test_expand_plain_covers_every_slot_once():
+    """Every slot below min(total, capacity) is owned by its gaussian, in
+    gaussian-major order; past the capacity the back pairs are dropped."""
+    w, h, tile = 96, 64, 16
+    _, tp = _inputs(w, h, 6, big_rects=True)
+    ex = TB.expand_inputs(tp, w, h, tile, tile, 1 << 20)
+    tile_id, depth, gid = TEX.expand_pairs(ex.itab, ex.ftab, ex.p_out,
+                                           ex.num_tiles, ex.ntx, tile, tile)
+    counts = np_(ex.itab[1])
+    np.testing.assert_array_equal(np_(gid), np.repeat(np.arange(300), counts))
+    culled = np_(tile_id) == ex.num_tiles
+    assert np.isinf(np_(depth)[culled]).all() and culled.any()
+    small = TB.expand_inputs(tp, w, h, tile, tile, ex.total // 3)
+    t2, _, g2 = TEX.expand_pairs(small.itab, small.ftab, small.p_out,
+                                 small.num_tiles, small.ntx, tile, tile)
+    assert small.p_out == ex.total // 3
+    np.testing.assert_array_equal(np_(g2), np_(gid)[: small.p_out])
+    np.testing.assert_array_equal(np_(t2), np_(tile_id)[: small.p_out])
+
+
+def test_clamp_tile_segments():
+    w, h, tile = 64, 48, 16
+    jp, tp = _inputs(w, h, 0, big_rects=True)
+    ref, ref_max = JB.clamp_tile_segments(
+        JB.bin_gaussians(jp, w, h, tile, tile, CAP), 7)
+    got, got_max = TB.clamp_tile_segments(
+        TB.bin_gaussians(tp, w, h, tile, tile, CAP), 7)
+    assert int(got_max) == int(ref_max) > 7
+    assert_segments_equal(ref, got, _num_tiles(w, h, tile))
+
+
+@pytest.mark.parametrize("n,pair_capacity", [(1, 100), (300, 8192),
+                                             (1 << 20, 1 << 21)])
+def test_capacity_helpers(n, pair_capacity):
+    assert TEX.expand_capacity(pair_capacity, n) == JEX.expand_capacity(
+        pair_capacity, n)
+    assert TB._packed_key_shift(n, 2040) == JB._packed_key_shift(n, 2040)

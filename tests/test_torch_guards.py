@@ -1,0 +1,185 @@
+"""Guards of the port: it imports nothing of JAX or tpugs, its entry points
+refuse to fall back to the CPU, its kernel wrappers send CPU tensors to the
+plain versions and never swallow an error, and its build raises with
+nvcc's message."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from tpugs_torch import cuda_lib
+from tpugs_torch.apps import render as render_app
+from tpugs_torch.device import resolve_device
+from tpugs_torch.ops import binning as TB
+from tpugs_torch.ops import composite_t, expand, pack
+from tpugs_torch.ops.rasterize_tiled import RasterConfig
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "tpugs_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "tpugs")
+
+
+def _port_sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _modules():
+    return sorted(
+        "tpugs_torch." + ".".join(p.relative_to(PKG).with_suffix("").parts)
+        for p in PKG.rglob("*.py") if p.name != "__init__.py"
+    ) + ["tpugs_torch"]
+
+
+def test_sources_import_no_jax_or_tpugs():
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for name in names:
+                assert name.split(".")[0] not in FORBIDDEN, f"{path}: {name}"
+
+
+def test_every_module_imports_with_jax_and_tpugs_blocked():
+    code = (
+        "import sys, py_compile, importlib\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'tpugs'):\n"
+        "    sys.modules[m] = None\n"
+        f"for m in {_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"py_compile.compile({str(ROOT / 'chip_smoke.py')!r}, doraise=True,\n"
+        "                   cfile=None)\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_device_resolution_never_falls_back(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device(None)
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
+    from tpugs_torch.io.ply import write_gaussian_ply_numpy
+    from tpugs_torch.utils.synthetic import synthetic_params_numpy
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    p = synthetic_params_numpy(20, seed=0)
+    ply = tmp_path / "m.ply"
+    write_gaussian_ply_numpy(ply, p["means"], p["sh"], p["opacity_logits"],
+                             p["log_scales"], p["quats"])
+    argv = ["-m", str(ply), "-o", str(tmp_path / "f"), "--frames", "1",
+            "--width", "32", "--height", "32"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        render_app.main(argv)
+    assert not (tmp_path / "f").exists()
+    assert render_app.main(argv + ["--device", "cpu"]) == 0
+    assert (tmp_path / "f" / "frame_0000.png").exists()
+
+
+def _expand_args(device="cpu"):
+    from tests.torch_parity import random_projection, torch_projection
+
+    tp = torch_projection(random_projection(50, 64, 48, 0))
+    ex = TB.expand_inputs(tp, 64, 48, 16, 16, 4096)
+    return (ex.itab.to(device), ex.ftab.to(device), ex.p_out, ex.num_tiles,
+            ex.ntx, 16, 16)
+
+
+def _wrappers(device="cpu"):
+    """(wrapper, plain name, args) for each kernel wrapper."""
+    cfg = RasterConfig(img_h=48, img_w=64, tile_h=16, tile_w=16)
+    z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device=device)
+    i32 = torch.int32
+    return [
+        (expand.expand_pairs, (expand, "expand_pairs_plain"), _expand_args(device)),
+        (pack.align_copy, (pack, "align_copy_plain"),
+         (z(16, 256), z(12, dt=i32), z(12, dt=i32), z(12, dt=i32), 128)),
+        (composite_t.composite_forward, (composite_t, "composite_forward_plain"),
+         (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128))),
+    ]
+
+
+@pytest.mark.parametrize("k", range(3))
+def test_cpu_tensor_reaches_the_plain_version(monkeypatch, k):
+    wrapper, (mod, plain), args = _wrappers()[k]
+    before = wrapper.launches
+    monkeypatch.setattr(mod, plain, lambda *a, **kw: "plain")
+    monkeypatch.setattr(cuda_lib, "lib", lambda: pytest.fail("kernel launched"))
+    assert wrapper(*args) == "plain"
+    assert wrapper.launches == before
+
+
+@pytest.mark.parametrize("k", range(3))
+def test_non_cpu_tensor_goes_to_the_kernel_and_errors_propagate(monkeypatch, k):
+    """A tensor off the CPU never takes the plain version: the wrapper goes
+    to the kernel library, and its failure reaches the caller."""
+    wrapper, (mod, plain), args = _wrappers("meta")[k]
+    monkeypatch.setattr(mod, plain, lambda *a, **kw: pytest.fail("fell back"))
+
+    def broken():
+        raise RuntimeError("no kernel library")
+
+    monkeypatch.setattr(cuda_lib, "lib", broken)
+    with pytest.raises(RuntimeError, match="no kernel library"):
+        wrapper(*args)
+
+
+def test_wrapper_rejects_wrong_inputs():
+    itab, ftab, *rest = _expand_args("meta")
+    with pytest.raises(ValueError, match="dtype"):
+        expand.expand_pairs(itab.float(), ftab, *rest)
+    with pytest.raises(ValueError, match="contiguous"):
+        expand.expand_pairs(itab, ftab.t().contiguous().t(), *rest)
+    with pytest.raises(ValueError, match="expected"):
+        expand.expand_pairs(itab[:4].contiguous(), ftab, *rest)
+
+
+def test_launch_error_code_raises():
+    cuda_lib.check("tpugs_expand", 0)
+    with pytest.raises(RuntimeError, match="CUDA error 9"):
+        cuda_lib.check("tpugs_expand", 9)
+
+
+def test_build_failure_raises_with_nvcc_output(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "_nvcc", lambda: str(fake))
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        cuda_lib.build()
+    assert not cuda_lib.library_path().exists()
+
+
+def test_build_command_and_key():
+    srcs = cuda_lib.sources()
+    assert {s.name for s in srcs} == {"expand.cu", "align_copy.cu",
+                                      "composite_fwd.cu"}
+    for s in srcs:
+        text = s.read_text()
+        assert "torch/extension.h" not in text and 'extern "C"' in text
+        assert "Replaces: tpugs/ops/pallas/" in text and "Bound on the H100" in text
+    path = cuda_lib.library_path()
+    assert path.parent.parent == cuda_lib.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in cuda_lib.ARCH_FLAGS
+    assert set(cuda_lib.SIGNATURES) >= {"tpugs_expand", "tpugs_align_copy",
+                                        "tpugs_composite_fwd"}
+

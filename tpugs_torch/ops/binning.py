@@ -1,0 +1,291 @@
+"""Stage 2: tile binning and the depth sort, as in tpugs/ops/binning.py.
+
+The expansion runs in the expand kernel (ops/expand.py); the sort that
+follows is `torch.sort` on one int64 key per pair, as the JAX package leaves
+its sort to XLA. The three sorts of the reference's kernel path:
+
+- presorted (gaussian index == depth rank): key = tile << shift | gid;
+- qkey: key = tile << qbits | quantized depth bin, unstable (viewer only);
+- the 2-key (tile, depth) sort: key = tile << 32 | depth's order bits,
+  stable, so ties keep the gaussian-major slot order and gid is the last
+  tie-break.
+
+tile_start/tile_stop come from a binary search of the sorted keys.
+Unlike the reference, the pair arrays are as long as the pairs that survive
+the capacity, min(total, pair_capacity), not a fixed padded length: that
+costs one host read of the total per frame.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tpugs_torch.ops import expand as EX
+from tpugs_torch.ops.projection import ProjectionOutput
+
+F32_MAX = torch.finfo(torch.float32).max
+
+
+@dataclasses.dataclass
+class BinningResult:
+    """Sorted (tile, gaussian) pair list + per-tile ranges.
+
+    pair_gauss [P]  gaussian index per sorted pair
+    pair_tile  [P]  tile id per sorted pair (num_tiles for invalid slots,
+                    which sort to the back)
+    tile_start [T]  start of each tile's run in the sorted list (int32)
+    tile_stop  [T]  end of the run, exclusive (int32)
+    num_pairs  []   true total pair count (may exceed the capacity)
+    overflow   []   bool: the total exceeded the capacity (pairs dropped)
+    """
+
+    pair_gauss: torch.Tensor
+    pair_tile: torch.Tensor
+    tile_start: torch.Tensor
+    tile_stop: torch.Tensor
+    num_pairs: torch.Tensor
+    overflow: torch.Tensor
+
+
+def tile_rects(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
+               tile_h: int, r2_cull=None):
+    """Per-gaussian touched tile rectangle -> (tx0, ty0, w_tiles, h_tiles)
+    int32; culled gaussians get zero-area rects. With r2_cull the rect radius
+    is min(3-sigma radius, ceil(alpha-aware radius))."""
+    ntx = -(-img_w // tile_w)
+    nty = -(-img_h // tile_h)
+    x = proj.means2d[:, 0]
+    y = proj.means2d[:, 1]
+    r = proj.radii.to(torch.float32)
+    if r2_cull is not None:
+        r_alpha = torch.sqrt(torch.clamp(r2_cull, max=3.4e38))
+        r = torch.minimum(r, torch.ceil(r_alpha))
+
+    i32 = torch.int32
+    rect_min_x = torch.clamp(torch.floor(x - r), 0, img_w).to(i32)
+    rect_min_y = torch.clamp(torch.floor(y - r), 0, img_h).to(i32)
+    rect_max_x = torch.clamp(torch.floor(x + r + 1.0), 0, img_w).to(i32)
+    rect_max_y = torch.clamp(torch.floor(y + r + 1.0), 0, img_h).to(i32)
+
+    tx0 = rect_min_x // tile_w
+    ty0 = rect_min_y // tile_h
+    tx1 = torch.clamp(-((-rect_max_x) // tile_w), max=ntx)
+    ty1 = torch.clamp(-((-rect_max_y) // tile_h), max=nty)
+
+    zero = torch.zeros_like(tx0)
+    w_tiles = torch.where(proj.visible, torch.clamp(tx1 - tx0, min=0), zero)
+    h_tiles = torch.where(proj.visible, torch.clamp(ty1 - ty0, min=0), zero)
+    return tx0, ty0, w_tiles, h_tiles
+
+
+def cull_radius_sq(proj: ProjectionOutput) -> torch.Tensor:
+    """Per-gaussian squared cull radius r^2 = 2 lambda_max(Sigma) ln(255 op),
+    inflated by 1.001: a pixel farther than that has alpha < 1/255."""
+    a, b, c = proj.conic[:, 0], proj.conic[:, 1], proj.conic[:, 2]
+    h = (a - c) / 2.0
+    lmin = (a + c) / 2.0 - torch.sqrt(h * h + b * b + 1e-20)
+    lam_max = 1.0 / torch.clamp(lmin, min=1e-12)
+    r2_alpha = 2.0 * lam_max * torch.log(torch.clamp(255.0 * proj.opac, min=1.0))
+    big = torch.full_like(r2_alpha, F32_MAX)
+    r2 = torch.where(lmin > 0, r2_alpha * 1.001, big)
+    return torch.where(proj.visible, r2, torch.zeros_like(r2))
+
+
+def presort_by_depth(proj: ProjectionOutput):
+    """Sort the projection front to back once per frame (stable, so equal
+    depths keep index order), making the gaussian index the depth rank.
+    Returns (perm [N] int64, permuted ProjectionOutput)."""
+    inf = torch.full_like(proj.depths, float("inf"))
+    key = torch.where(proj.visible, proj.depths, inf)
+    _, perm = torch.sort(key, stable=True)
+    return perm, ProjectionOutput(
+        means2d=proj.means2d[perm], depths=proj.depths[perm],
+        conic=proj.conic[perm], radii=proj.radii[perm], rgb=proj.rgb[perm],
+        opac=proj.opac[perm], visible=proj.visible[perm],
+    )
+
+
+def _index_bits(n: int) -> int:
+    """Bits of a gaussian index below n (at least 1)."""
+    return max(1, (n - 1).bit_length())
+
+
+def _packed_key_shift(n: int, num_tiles: int):
+    """The reference's bit budget for one u32 key (tile_id << shift | g):
+    the shift, or None when tile and gaussian ids don't fit 32 bits. The
+    port's keys are int64 and always fit."""
+    shift = _index_bits(n)
+    if num_tiles << shift <= 0xFFFFFFFF:
+        return shift
+    return None
+
+
+def _depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
+    """float32 -> int64 in [0, 2^32) with the same order (IEEE total order
+    for non-NaN values)."""
+    i = depth.contiguous().view(torch.int32).to(torch.int64)
+    i = torch.where(i < 0, i ^ 0x7FFFFFFF, i)
+    return i + (1 << 31)
+
+
+def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
+               num_tiles: int, n: int, total: int, pair_capacity: int,
+               presorted: bool = False, qbits: int = 0) -> BinningResult:
+    """Sort expanded (tile, depth, gid) slots into per-tile runs. `depth` is
+    the quantized bin when qbits > 0 and unused when presorted."""
+    dev = tile.device
+    tile64 = tile.to(torch.int64)
+    if presorted:
+        shift = _index_bits(n)
+        key = (tile64 << shift) | gid.to(torch.int64)
+        skey, _ = torch.sort(key)
+        sorted_g = skey & ((1 << shift) - 1)
+    else:
+        if qbits > 0:
+            shift = qbits
+            low = torch.where(tile < num_tiles, depth, torch.zeros_like(depth))
+            key = (tile64 << shift) | low.to(torch.int64)
+            skey, order = torch.sort(key)
+        else:
+            shift = 32
+            key = (tile64 << shift) | _depth_order_bits(depth)
+            skey, order = torch.sort(key, stable=True)
+        sorted_g = gid.to(torch.int64)[order]
+    bounds = torch.arange(num_tiles, dtype=torch.int64, device=dev) << shift
+    tile_start = torch.searchsorted(skey, bounds).to(torch.int32)
+    tile_stop = torch.searchsorted(skey, bounds + (1 << shift)).to(torch.int32)
+    sorted_tile = torch.clamp(skey >> shift, max=num_tiles).to(torch.int32)
+    return BinningResult(
+        pair_gauss=sorted_g.to(torch.int32),
+        pair_tile=sorted_tile,
+        tile_start=tile_start,
+        tile_stop=tile_stop,
+        num_pairs=torch.tensor(total, dtype=torch.int64, device=dev),
+        overflow=torch.tensor(total > pair_capacity, device=dev),
+    )
+
+
+def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
+                  tile_h: int, pair_capacity: int, presorted: bool = False
+                  ) -> BinningResult:
+    """The oracle: the reference's whole-capacity expansion (marker
+    histogram + cumsum ownership over pair_capacity slots), then the same
+    sort as the kernel path."""
+    ntx = -(-img_w // tile_w)
+    nty = -(-img_h // tile_h)
+    num_tiles = ntx * nty
+    dev = proj.means2d.device
+    r2_cull = cull_radius_sq(proj)
+    tx0, ty0, w_tiles, h_tiles = tile_rects(proj, img_w, img_h, tile_w,
+                                            tile_h, r2_cull)
+    counts = (w_tiles * h_tiles).to(torch.int64)
+    offsets = torch.cumsum(counts, 0) - counts
+    n = counts.shape[0]
+    total = int(counts.sum())
+
+    slots = torch.arange(pair_capacity, dtype=torch.int64, device=dev)
+    keep = offsets < pair_capacity
+    ind = torch.zeros(pair_capacity, dtype=torch.int64, device=dev)
+    ind.index_add_(0, offsets[keep], torch.ones_like(offsets[keep]))
+    g = torch.clamp(torch.cumsum(ind, 0) - 1, 0, n - 1)
+    in_range = slots < min(total, pair_capacity)
+
+    local = slots - offsets[g]
+    w_g = torch.clamp(w_tiles.to(torch.int64)[g], min=1)
+    tx = tx0.to(torch.int64)[g] + local % w_g
+    ty = ty0.to(torch.int64)[g] + local // w_g
+    tile_id = ty * ntx + tx
+    gx, gy, r2_g = proj.means2d[g, 0], proj.means2d[g, 1], r2_cull[g]
+    px0 = (tx * tile_w).to(torch.float32)
+    py0 = (ty * tile_h).to(torch.float32)
+    dx = torch.clamp(gx, min=px0, max=px0 + (tile_w - 1)) - gx
+    dy = torch.clamp(gy, min=py0, max=py0 + (tile_h - 1)) - gy
+    valid = in_range & (dx * dx + dy * dy <= r2_g)
+    tile_id = torch.where(valid, tile_id, torch.full_like(tile_id, num_tiles))
+    depth = torch.where(valid, proj.depths[g],
+                        torch.full_like(gx, float("inf")))
+    return sort_pairs(tile_id, depth, g, num_tiles, n, total, pair_capacity,
+                      presorted=presorted)
+
+
+@dataclasses.dataclass
+class ExpandInputs:
+    """The expand kernel's inputs for one frame (see ops/expand.py)."""
+
+    itab: torch.Tensor  # int32 [5, N]
+    ftab: torch.Tensor  # f32 [4, N]
+    p_out: int  # min(total, pair_capacity)
+    total: int  # true pair count
+    num_tiles: int
+    ntx: int
+    qbits: int  # depth-key bits of the qkey sort, 0 otherwise
+
+
+def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
+                  tile_w: int, tile_h: int, pair_capacity: int,
+                  presorted: bool = False, quant_key_bits: int = 0
+                  ) -> ExpandInputs:
+    """Per-gaussian rects, counts, offsets and cull radii for the expand
+    kernel. quant_key_bits > 0 (not presorted) replaces the depth key with
+    its linear bin over the visible depth range, as the reference's qkey
+    path does, capped at 22 bits and at what the tile ids leave of 32."""
+    ntx = -(-img_w // tile_w)
+    nty = -(-img_h // tile_h)
+    num_tiles = ntx * nty
+    r2_cull = cull_radius_sq(proj)
+    tx0, ty0, w_tiles, h_tiles = tile_rects(proj, img_w, img_h, tile_w,
+                                            tile_h, r2_cull)
+    counts = w_tiles * h_tiles
+    offsets64 = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    total = int(offsets64[-1] + counts[-1]) if counts.shape[0] else 0
+    if total >= 2**31:
+        raise ValueError(f"{total} pairs: past the int32 slot range")
+    qbits = 0
+    if quant_key_bits > 0 and not presorted:
+        qbits = max(min(quant_key_bits, 32 - num_tiles.bit_length(), 22), 0)
+    depth_row = proj.depths
+    if qbits > 0:
+        nbins = 1 << qbits
+        d, vis = proj.depths, proj.visible
+        inf = torch.full_like(d, float("inf"))
+        dmin = torch.min(torch.where(vis, d, inf))
+        dmax = torch.max(torch.where(vis, d, -inf))
+        # A true division, as the reference's (torch's scalar / tensor is a
+        # reciprocal times the scalar, which rounds differently).
+        scale = torch.div(torch.full_like(dmin, nbins - 1),
+                          torch.clamp(dmax - dmin, min=1e-12))
+        depth_row = torch.floor(torch.clamp((d - dmin) * scale, 0, nbins - 1))
+    itab = torch.stack([offsets64.to(torch.int32), counts, tx0, ty0,
+                        torch.clamp(w_tiles, min=1)]).contiguous()
+    ftab = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], r2_cull,
+                        depth_row]).to(torch.float32).contiguous()
+    return ExpandInputs(itab=itab, ftab=ftab,
+                        p_out=min(total, pair_capacity), total=total,
+                        num_tiles=num_tiles, ntx=ntx, qbits=qbits)
+
+
+def bin_gaussians_expand_kernel(proj: ProjectionOutput, img_w: int,
+                                img_h: int, tile_w: int, tile_h: int,
+                                pair_capacity: int, presorted: bool = False,
+                                quant_key_bits: int = 0) -> BinningResult:
+    """bin_gaussians with the expansion done by the expand kernel. The
+    sorted segments are bit-identical to bin_gaussians' (presorted or 2-key
+    sort); with quant_key_bits > 0 they hold the same pairs per tile in
+    quantized-depth order, same-bin order arbitrary."""
+    ex = expand_inputs(proj, img_w, img_h, tile_w, tile_h, pair_capacity,
+                       presorted, quant_key_bits)
+    tile, depth, gid = EX.expand_pairs(ex.itab, ex.ftab, ex.p_out,
+                                       ex.num_tiles, ex.ntx, tile_w, tile_h)
+    return sort_pairs(tile, depth, gid, ex.num_tiles, proj.depths.shape[0],
+                      ex.total, pair_capacity, presorted=presorted,
+                      qbits=ex.qbits)
+
+
+def clamp_tile_segments(binning: BinningResult, max_hits: int):
+    """Truncate every tile's segment to its first (front-most) max_hits
+    entries. Returns (clamped BinningResult, pre-clamp max_tile_hits [])."""
+    hits = binning.tile_stop - binning.tile_start
+    max_tile_hits = torch.max(hits)
+    stop = torch.minimum(binning.tile_stop, binning.tile_start + max_hits)
+    return dataclasses.replace(binning, tile_stop=stop), max_tile_hits

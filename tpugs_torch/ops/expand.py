@@ -1,0 +1,101 @@
+"""Pair expansion: the kernel wrapper and its plain PyTorch version.
+
+Each gaussian's touched tile rect becomes one slot per (gaussian, tile), in
+gaussian-major order, with the pixel-exact corner cull of
+binning.bin_gaussians. Slot s of gaussian g lies in [offset[g],
+offset[g] + count[g]); slots at or past `p_out` are dropped, so with
+p_out = min(total, pair_capacity) the pairs past the capacity go exactly as
+the reference's clamped chunk offsets drop them, and every output slot is
+written. A culled slot holds the sentinel: tile = num_tiles, depth = +inf.
+Validity is `tile < num_tiles`.
+
+The CUDA kernel is csrc/expand.cu (it replaces
+tpugs/ops/pallas/expand.py::_expand_kernel in its 4-row mode). A CUDA
+tensor goes to the kernel, a CPU tensor to `expand_pairs_plain`.
+"""
+from __future__ import annotations
+
+import torch
+
+from tpugs_torch import cuda_lib
+
+# The reference kernel's chunking, kept for expand_capacity.
+GC = 256  # gaussians per chunk
+OB = 512  # output slots per block
+PAD_ALIGN = 128  # per-chunk output padding
+
+ITAB_ROWS = 5  # offset, count, tx0, ty0, w (>= 1)
+FTAB_ROWS = 4  # gx, gy, r2 (cull radius squared), depth key
+
+
+def expand_capacity(pair_capacity: int, n: int) -> int:
+    """The reference kernel's padded output length for n gaussians: pair
+    capacity + worst-case per-chunk padding + one block of tail slack. The
+    port's expansion needs no padding; its output is min(total,
+    pair_capacity) slots."""
+    n_chunks = -(-n // GC)
+    raw = pair_capacity + n_chunks * (PAD_ALIGN - 1) + OB
+    return -(-raw // OB) * OB
+
+
+def expand_pairs_plain(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
+                       num_tiles: int, ntx: int, tile_w: int, tile_h: int):
+    """Plain version of the expansion: one vectorised pass over the slots,
+    each finding its owner by a search over the offsets. Returns (tile i32
+    [p_out], depth f32 [p_out], gid i32 [p_out])."""
+    dev = itab.device
+    off, _, tx0, ty0, w = (r.to(torch.int64) for r in itab)
+    gx, gy, r2, depth = ftab
+    slots = torch.arange(p_out, dtype=torch.int64, device=dev)
+    # The owner is the last gaussian whose offset is <= slot; a zero-count
+    # gaussian shares its offset with the next one, so it never owns a slot.
+    g = torch.searchsorted(off, slots, right=True) - 1
+    local = slots - off[g]
+    wg = w[g]
+    tx = tx0[g] + local % wg
+    ty = ty0[g] + local // wg
+    px0 = (tx * tile_w).to(torch.float32)
+    py0 = (ty * tile_h).to(torch.float32)
+    gxg, gyg = gx[g], gy[g]
+    dx = torch.clamp(gxg, min=px0, max=px0 + (tile_w - 1)) - gxg
+    dy = torch.clamp(gyg, min=py0, max=py0 + (tile_h - 1)) - gyg
+    hit = dx * dx + dy * dy <= r2[g]
+    tile = torch.where(hit, ty * ntx + tx, torch.full_like(tx, num_tiles))
+    dep = torch.where(hit, depth[g], torch.full_like(gxg, float("inf")))
+    return tile.to(torch.int32), dep, g.to(torch.int32)
+
+
+def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
+                 num_tiles: int, ntx: int, tile_w: int, tile_h: int):
+    """Expand gaussians into p_out (tile, depth, gid) slots. itab int32
+    [5, N] (offset, count, tx0, ty0, w >= 1), ftab f32 [4, N] (gx, gy, r2,
+    depth key); offsets are the exclusive prefix sum of the counts. Returns
+    (tile i32 [p_out], depth f32 [p_out], gid i32 [p_out])."""
+    if itab.device.type == "cpu":
+        return expand_pairs_plain(itab, ftab, p_out, num_tiles, ntx, tile_w,
+                                  tile_h)
+    dev = itab.device
+    cuda_lib.require(itab, "itab", torch.int32, dev, 2)
+    cuda_lib.require(ftab, "ftab", torch.float32, dev, 2)
+    n = itab.shape[1]
+    if itab.shape[0] != ITAB_ROWS or tuple(ftab.shape) != (FTAB_ROWS, n):
+        raise ValueError(f"expand_pairs: itab {tuple(itab.shape)}, ftab "
+                         f"{tuple(ftab.shape)}; expected [5, N] and [4, N]")
+    if not 0 <= p_out < 2**31 or n >= 2**31:
+        raise ValueError(f"expand_pairs: p_out {p_out} or n {n} out of range")
+    lib = cuda_lib.lib()
+    tile = torch.empty(p_out, dtype=torch.int32, device=dev)
+    depth = torch.empty(p_out, dtype=torch.float32, device=dev)
+    gid = torch.empty(p_out, dtype=torch.int32, device=dev)
+    if p_out == 0 or n == 0:
+        return tile, depth, gid
+    code = lib.tpugs_expand(
+        dev.index, itab.data_ptr(), ftab.data_ptr(), n, p_out, num_tiles,
+        ntx, tile_w, tile_h, tile.data_ptr(), depth.data_ptr(),
+        gid.data_ptr(), cuda_lib.stream_ptr(dev))
+    expand_pairs.launches += 1
+    cuda_lib.check("tpugs_expand", code)
+    return tile, depth, gid
+
+
+expand_pairs.launches = 0
