@@ -6,17 +6,36 @@
 Phases, each under a watchdog that ends a hung run with a stack trace and
 a nonzero exit:
   0. device: the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-  1. build: the one kernel library, with nvcc alone (tpugs_torch/cuda_lib);
+  1. build: the one kernel library, one nvcc call
+     (tpugs_torch/cuda_lib);
   2. kernels against their plain PyTorch versions on a 20k-gaussian scene
      at 256x192, tiles of 16 and 32: expand and align-copy bit-identical,
      the forward compositor within the stated tolerances;
+  2b. the same scene rendered with gradients under a seeded L1 + SSIM loss:
+     the backward compositor and the sorted segment sum bit-identical to
+     their plain versions on the inputs the backward gave them, and the
+     whole render() gradient on the card against the same on the CPU;
   3. the render CLI itself (tpugs_torch.apps.render.main), 3 frames at
      1920x1080 of a 1M-gaussian SH-degree-3 PLY, no overflow, every frame
-     through all three kernels; then each kernel timed alone at that frame's
-     shapes beside its bound, its plain version and a library call, and held
-     against its plain version on the whole frame.
-Prints a {"kernels": [...]} line, the nvidia-smi line and, only when every
-phase passed, {"ok": true, "device": {...}} as the last line.
+     through all three forward kernels; then each of those kernels timed
+     alone at that frame's shapes beside its bound, its plain version and a
+     library call, and held against its plain version on the whole frame;
+  4. the port's train step (tpugs_torch.train.trainer.make_train_step) at
+     the garden shape (1M gaussians, 1297x840, SH 3, tiles of 32): render
+     with gradients, L1 + SSIM against a seeded target, backward, Adam; 2
+     warm-up and 10 timed steps, each through all five kernels, no
+     overflow, finite loss and gradients; then all five kernels held
+     against their plain versions on step 0's inputs and timed alone there
+     beside their bounds (these rows make the kernels line), and the gid
+     sort timed;
+  5. the train CLI (tpugs_torch.apps.train.main, --no-densify) for 20 steps
+     on a 4-view 1297x840 GT dataset of a 1M-gaussian model with 1M sparse
+     points; finite losses, no overflow left, every step through all five
+     kernels, and its last checkpoint loads.
+Prints a {"kernels": [...]} line for the main path, the train step, with
+each kernel's launches on every path driven, then the nvidia-smi line and,
+only when every phase passed, {"ok": true, "device": {...}} as the last
+line.
 """
 from __future__ import annotations
 
@@ -36,11 +55,24 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 ATOL = 1e-5  # compositor color and T: ulp-scale drift of summation order
 MIN_MATCH = 0.999  # compositor n_contrib / k_last: share of equal pixels
 
+GRAD_RTOL, GRAD_ATOL_REL = 1e-3, 1e-4  # card vs CPU render() gradients,
+MIN_GRAD_MATCH = 0.999  # per element: projection's ulps between devices can
+#                         move a rare rect or cull boundary, and with it one
+#                         gaussian's gradient
+
 CLI_N = 1_000_000
 CLI_W, CLI_H = 1920, 1080
 CLI_FRAMES = 3
 CLI_PAIR_CAPACITY = 1 << 24  # the port sizes its pair arrays by the real count
 CLI_MAX_HITS = 1 << 20
+
+# The garden-30k training shape of bench.py's second configuration.
+TRAIN_N = 1_000_000
+TRAIN_W, TRAIN_H = 1297, 840
+TRAIN_PAIR_CAPACITY = 2_453_504
+TRAIN_MAX_HITS = 8192
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+TRAIN_CLI_VIEWS, TRAIN_CLI_STEPS = 4, 20
 
 _T0 = time.perf_counter()
 
@@ -86,6 +118,55 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+def kernel_wrappers() -> dict:
+    """name -> the kernel wrapper whose `launches` counts its launches."""
+    from tpugs_torch.ops import composite_t, expand, pack, segreduce
+
+    return {"expand": expand.expand_pairs, "align_copy": pack.align_copy,
+            "composite_fwd": composite_t.composite_forward,
+            "composite_bwd": composite_t.composite_backward,
+            "segreduce": segreduce.segment_sum_sorted}
+
+
+def reset_launches():
+    for fn in kernel_wrappers().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+
+
+@contextlib.contextmanager
+def capturing(module, name: str):
+    """Record the arguments of the first call of module.name while the
+    block runs. A wrapper counts its launches on the module attribute, so
+    the count moves to the recorder and back."""
+    orig = getattr(module, name)
+    calls = []
+
+    def recorder(*args):
+        if not calls:
+            calls.append(args)
+        return orig(*args)
+
+    if hasattr(orig, "launches"):
+        recorder.launches = orig.launches
+    setattr(module, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, orig)
+        if hasattr(orig, "launches"):
+            orig.launches = recorder.launches
+
+
+def close_share(a, b) -> float:
+    """Share of elements of a within GRAD_RTOL |b| + GRAD_ATOL_REL max|b|."""
+    tol = GRAD_RTOL * b.abs() + GRAD_ATOL_REL * float(b.abs().max())
+    return float(((a - b).abs() <= tol).float().mean())
 
 
 def phase_device():
@@ -206,6 +287,85 @@ def phase_kernels(dev, errs):
               f"{m_nc:.6f}/{m_kl:.6f}", flush=True)
 
 
+NAMES = ("means", "quats", "log_scales", "opacity_logits", "sh")
+
+
+def check_backward_kernels(k4_args, k5_args, errs, where: str):
+    """The backward compositor and the segment sum on the inputs a backward
+    gave them, against their plain versions: bit-identical."""
+    import torch
+
+    from tpugs_torch.ops import composite_t, pack, segreduce
+
+    with torch.no_grad():
+        got = composite_t.composite_backward(*k4_args)
+        ref = composite_t.composite_backward_plain(*k4_args)
+        valid = k4_args[3][pack.VALID_ROW] > 0
+        check(bool(torch.isfinite(got[:, valid]).all()),
+              "backward compositor output not finite")
+        err4 = float((got[:, valid] - ref[:, valid]).abs().max())
+        got = segreduce.segment_sum_sorted(*k5_args)
+        err5 = float((got - segreduce.segment_sum_sorted_plain(
+            *k5_args)).abs().max())
+    check(err4 == 0.0, f"backward compositor differs from its plain version "
+          f"by {err4} ({where})")
+    check(err5 == 0.0, f"segment sum differs from its plain version by "
+          f"{err5} ({where})")
+    errs["composite_bwd"] = max(errs.get("composite_bwd", 0.0), err4)
+    errs["segreduce"] = max(errs.get("segreduce", 0.0), err5)
+
+
+def phase_grad_kernels(dev, errs):
+    """The 20k scene rendered with gradients on the card and on the CPU;
+    the backward kernels held against their plain versions on the inputs
+    the card's backward gave them."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.core.gaussians import params_from_numpy
+    from tpugs_torch.ops import composite_t, segreduce
+    from tpugs_torch.ops.render import RasterConfig, render
+    from tpugs_torch.train.loss import combined_loss
+    from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
+                                             synthetic_params_numpy)
+
+    w, h, n = 256, 192, 20_000
+    p = synthetic_params_numpy(n, seed=0)
+    target = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(np.float32)
+    intr = synthetic_intrinsics_numpy(w, h)
+    cpu = torch.device("cpu")
+    for tile in (16, 32):
+        cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+                           pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
+        grads = {}
+        for d in (dev, cpu):
+            tp = {k: v.requires_grad_(True)
+                  for k, v in params_from_numpy(p, d).items()}
+            with capturing(composite_t, "composite_backward") as k4, \
+                    capturing(segreduce, "segment_sum_sorted") as k5:
+                out = render(*[tp[k] for k in NAMES],
+                             torch.ones(n, dtype=torch.bool, device=d),
+                             torch.eye(4, device=d),
+                             torch.from_numpy(intr).to(d), cfg, 3,
+                             torch.zeros(3, device=d))
+                loss = combined_loss(out.color, torch.from_numpy(target).to(d))
+                grads[d.type] = torch.autograd.grad(loss, [tp[k] for k in NAMES])
+            if d.type == "cuda":
+                check_backward_kernels(k4[0], k5[0], errs, f"tile {tile}")
+        shares = {}
+        for name, a, b in zip(NAMES, grads["cuda"], grads["cpu"]):
+            check(bool(torch.isfinite(a).all()), f"d {name} not finite")
+            shares[name] = close_share(a.cpu(), b)
+            check(shares[name] >= MIN_GRAD_MATCH,
+                  f"d {name}: {shares[name]} of elements within tolerance "
+                  f"of the CPU's (< {MIN_GRAD_MATCH})")
+        print(f"tile {tile} gradients: {int(out.num_pairs)} pairs; backward "
+              f"compositor and segment sum bit-identical to their plain "
+              f"versions; card vs CPU gradients within tolerance on "
+              f"{min(shares.values()):.6f} of elements (worst group)",
+              flush=True)
+
+
 def phase_cli(tmp, dev):
     """The render CLI at full width; returns the per-frame lines and launch
     counts of its run."""
@@ -214,7 +374,6 @@ def phase_cli(tmp, dev):
 
     from tpugs_torch.apps import render as render_app
     from tpugs_torch.io.ply import write_gaussian_ply_numpy
-    from tpugs_torch.ops import composite_t, expand, pack
     from tpugs_torch.utils.synthetic import synthetic_params_numpy
 
     p = synthetic_params_numpy(CLI_N, seed=0, scale_range=(0.002, 0.015))
@@ -227,13 +386,11 @@ def phase_cli(tmp, dev):
             "--pair-capacity", str(CLI_PAIR_CAPACITY),
             "--max-hits", str(CLI_MAX_HITS), "--on-overflow", "error",
             "--device", dev.type]
-    wrappers = (expand.expand_pairs, pack.align_copy, composite_t.composite_forward)
-    for fn in wrappers:
-        fn.launches = 0
+    reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = render_app.main(argv)
-    launches = {fn.__name__: fn.launches for fn in wrappers}
+    launches = read_launches()
     check(rc == 0, f"render CLI returned {rc}")
     stats = re.findall(r"frame (\d+): \S+ pairs (\d+) max_tile_hits (\d+) "
                        r"ms ([\d.]+)", out.getvalue())
@@ -245,9 +402,10 @@ def phase_cli(tmp, dev):
     steady = [float(s[3]) for s in stats[1:]]
     print(f"cli 1920x1080 1M SH3: {np.mean(steady):.3f} ms/frame after "
           f"warm-up; launches {launches}", flush=True)
-    for name, count in launches.items():
-        check(count == CLI_FRAMES, f"{name} launched {count} times in "
-              f"{CLI_FRAMES} frames (expected 1 per frame)")
+    for name in ("expand", "align_copy", "composite_fwd"):
+        check(launches[name] == CLI_FRAMES, f"{name} launched "
+              f"{launches[name]} times in {CLI_FRAMES} frames (expected 1 "
+              f"per frame)")
     for i in range(CLI_FRAMES):
         img = np.asarray(Image.open(os.path.join(frames, f"frame_{i:04d}.png")))
         check(img.shape == (CLI_H, CLI_W, 3), f"frame {i} shape {img.shape}")
@@ -255,17 +413,15 @@ def phase_cli(tmp, dev):
     return p, launches, stats
 
 
-def phase_timing(dev, params, launches, errs):
-    """Frame 0's kernel inputs, each kernel timed alone and held against its
-    plain version on the whole frame."""
-    import numpy as np
+def phase_timing(dev, params, errs):
+    """The render CLI's frame 0 rebuilt, and its forward kernels' rows."""
     import torch
 
     from tpugs_torch.core.gaussians import params_from_numpy
     from tpugs_torch.ops import binning as B
-    from tpugs_torch.ops import composite_t, expand, pack
+    from tpugs_torch.ops import expand, pack
     from tpugs_torch.ops.projection import project_gaussians
-    from tpugs_torch.ops.rasterize_tiled import T_THRESHOLD, RasterConfig
+    from tpugs_torch.ops.rasterize_tiled import RasterConfig
     from tpugs_torch.viewer.camera import orbit_trajectory
 
     tile = 32
@@ -283,31 +439,61 @@ def phase_timing(dev, params, launches, errs):
     # The CLI's presort="fastest" takes the qkey sort at N = 1M.
     ex = B.expand_inputs(proj, CLI_W, CLI_H, tile, tile, cfg.pair_capacity,
                          quant_key_bits=32)
-    args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
-    kern = expand.expand_pairs(*args)
-    plain = expand.expand_pairs_plain(*args)
-    check(all(torch.equal(a, b) for a, b in zip(kern, plain)),
-          "expand differs from its plain version on the full frame")
-    rows = []
-    k_ms = cuda_ms(lambda: expand.expand_pairs(*args))
-    pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*args), reps=3)
-    k1_bytes = ex.itab.numel() * 4 + ex.ftab.numel() * 4 + ex.p_out * 12
-    k1_ops = ex.p_out * 16  # index math, clamp, cull per slot
-    rows.append(("expand", "tpugs_torch/csrc/expand.cu",
-                 "tpugs/ops/pallas/expand.py:82", k_ms, pl_ms, k1_bytes,
-                 k1_ops, None))
-
-    b = B.sort_pairs(*kern, ex.num_tiles, n, ex.total, cfg.pair_capacity,
-                     qbits=ex.qbits)
+    a1 = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
+    b = B.sort_pairs(*expand.expand_pairs(*a1), ex.num_tiles, n, ex.total,
+                     cfg.pair_capacity, qbits=ex.qbits)
     b, _ = B.clamp_tile_segments(b, cfg.max_hits_per_tile)
     astart, astop, counts = pack.aligned_offsets(b.tile_start, b.tile_stop)
     pal = pack.aligned_length(astart, counts)
     attr_c = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
                                      proj.rgb, proj.opac, b.pair_gauss.shape[0])
     a2 = (attr_c, b.tile_start, astart, counts, pal)
+    a3 = (cfg, astart, astop, pack.align_copy(*a2), 0)
+    return forward_kernel_rows(dev, a1, a2, a3, errs, "render frame")
+
+
+def in_image(cfg, dev):
+    """[T, PIX] bool: the tile pixels that lie inside the image."""
+    import torch
+
+    p = torch.arange(cfg.pix, device=dev)
+    t = torch.arange(cfg.num_tiles, device=dev)[:, None]
+    x = (t % cfg.ntx) * cfg.tile_w + p % cfg.tile_w
+    y = (t // cfg.ntx) * cfg.tile_h + p // cfg.tile_w
+    return (x < cfg.img_w) & (y < cfg.img_h)
+
+
+def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
+    """The three forward kernels on one frame's inputs (a1 for expand, a2
+    for align-copy, a3 for the compositor): each held against its plain
+    version (expand and align-copy bit-identical, the compositor on the
+    whole frame and on 8 tiles incl. the busiest), timed alone beside its
+    plain version and (align-copy) a library call. Returns their rows."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.ops import composite_t, expand, pack
+    from tpugs_torch.ops.rasterize_tiled import T_THRESHOLD
+
+    kern = expand.expand_pairs(*a1)
+    check(all(torch.equal(a, b) for a, b in
+              zip(kern, expand.expand_pairs_plain(*a1))),
+          f"expand differs from its plain version on the {where}")
+    errs.setdefault("expand", 0.0)
+    itab, ftab, p_out = a1[:3]
+    k_ms = cuda_ms(lambda: expand.expand_pairs(*a1))
+    pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*a1), reps=3)
+    k1_bytes = itab.numel() * 4 + ftab.numel() * 4 + p_out * 12
+    k1_ops = p_out * 16  # index math, clamp, cull per slot
+    rows = [("expand", "tpugs_torch/csrc/expand.cu",
+             "tpugs/ops/pallas/expand.py:82", k_ms, pl_ms, k1_bytes, k1_ops,
+             None)]
+
+    attr_c, tile_start, astart, counts, pal = a2
     attr = pack.align_copy(*a2)
     check(torch.equal(attr, pack.align_copy_plain(*a2)),
-          "align-copy differs from its plain version on the full frame")
+          f"align-copy differs from its plain version on the {where}")
+    errs.setdefault("align_copy", 0.0)
     k_ms = cuda_ms(lambda: pack.align_copy(*a2))
     pl_ms = cuda_ms(lambda: pack.align_copy_plain(*a2), reps=3)
     # Library yardstick: one index_select of the same columns, gaps pointing
@@ -315,7 +501,7 @@ def phase_timing(dev, params, launches, errs):
     j = torch.arange(pal, device=dev)
     owner = torch.searchsorted(astart.long(), j, right=True) - 1
     k = j - astart.long()[owner]
-    src = torch.where(k < counts.long()[owner], b.tile_start.long()[owner] + k,
+    src = torch.where(k < counts.long()[owner], tile_start.long()[owner] + k,
                       torch.full_like(k, attr_c.shape[1]))
     attr_z = torch.cat([attr_c, torch.zeros_like(attr_c[:, :1])], 1)
     check(torch.equal(attr_z.index_select(1, src), attr), "index_select yardstick")
@@ -325,11 +511,12 @@ def phase_timing(dev, params, launches, errs):
                  "tpugs/ops/pallas/pack.py:100", k_ms, pl_ms,
                  entries * 64 + pal * 64, 0, lib_ms))
 
-    got = composite_t.composite_forward(cfg, astart, astop, attr)
-    k_ms = cuda_ms(lambda: composite_t.composite_forward(cfg, astart, astop, attr))
+    cfg = a3[0]
+    got = composite_t.composite_forward(*a3)
+    k_ms = cuda_ms(lambda: composite_t.composite_forward(*a3))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ref = composite_t.composite_forward_plain(cfg, astart, astop, attr)
+    ref = composite_t.composite_forward_plain(*a3)
     torch.cuda.synchronize()
     pl_ms = (time.perf_counter() - t0) * 1e3
     err, m_nc, m_kl = compare_compositor(got, ref)
@@ -338,46 +525,302 @@ def phase_timing(dev, params, launches, errs):
     rng = np.random.default_rng(0)
     pick = [busiest] + [int(t) for t in rng.choice(cfg.num_tiles, 7, replace=False)]
     sel = torch.tensor(pick, device=dev)
-    sub = composite_t.composite_forward_plain(cfg, astart, astop, attr, tiles=sel)
+    sub = composite_t.composite_forward_plain(*a3, tiles=sel)
     err8, _, _ = compare_compositor(tuple(g[sel] for g in got), sub)
     errs["composite_fwd"] = max(errs.get("composite_fwd", 0.0), err, err8)
-    # Work this frame needs: a pixel walks its tile's entries until T drops
-    # below the threshold (then k_last + 1 of them), else all of them.
+    # Work this frame needs: a pixel inside the image walks its tile's
+    # entries until T drops below the threshold (then k_last + 1 of them),
+    # else all of them.
     _, final_t, n_contrib, k_last = got
+    inside = in_image(cfg, dev)
     num = counts.long()[:, None].expand_as(k_last)
     walked = torch.where(final_t < T_THRESHOLD, k_last.long() + 1, num)
-    pairs_eval = int(walked.sum())
+    pairs_eval = int((walked * inside).sum())
     # 17 f32 operations per evaluated (pixel, entry), exp counted as one,
     # and 9 more per contribution.
-    k3_ops = 17 * pairs_eval + 9 * int(n_contrib.sum())
+    k3_ops = 17 * pairs_eval + 9 * int((n_contrib * inside).sum())
     k3_bytes = entries * 36 + cfg.num_tiles * cfg.pix * 24
     rows.append(("composite_fwd", "tpugs_torch/csrc/composite_fwd.cu",
                  "tpugs/ops/pallas/composite_t.py:180", k_ms, pl_ms, k3_bytes,
                  k3_ops, None))
-    print(f"full frame: {ex.total} pairs, {entries} composited entries, "
+    print(f"{where}: {p_out} expand slots, {entries} composited entries, "
           f"{pal} aligned columns; expand and align-copy bit-identical to "
           f"their plain versions; compositor max abs err {err:.3g} "
           f"(n_contrib/k_last equal {m_nc:.6f}/{m_kl:.6f}), on 8 tiles incl. "
           f"the busiest ({int(counts[busiest])} entries) {err8:.3g}", flush=True)
+    return rows
 
+
+def phase_train_step(dev, errs):
+    """The port's train step (tpugs_torch.train.trainer.make_train_step) at
+    the garden shape; returns the five kernels' rows (each timed and held
+    against its plain version on step 0's inputs), the launches of the run
+    and ms per step."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.ops import composite_t, expand, pack, segreduce
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_step)
+    from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
+                                             synthetic_params)
+
+    check(torch.get_float32_matmul_precision() == "highest"
+          and torch.backends.cuda.matmul.allow_tf32 is False,
+          "float32 matmuls would run in TF32")
+    w, h, n = TRAIN_W, TRAIN_H, TRAIN_N
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=32, tile_w=32,
+                       pair_capacity=TRAIN_PAIR_CAPACITY,
+                       max_hits_per_tile=TRAIN_MAX_HITS)
+    params = synthetic_params(n, seed=0, device=dev, scale_range=(0.002, 0.015))
+    state = TrainState(params=params,
+                       alive=torch.ones(n, dtype=torch.bool, device=dev),
+                       adam=adam_init(params), adc=adc_init(n, dev),
+                       key=initial_key(0))
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    viewmat = torch.eye(4, device=dev)
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev)
+    target = torch.rand((h, w, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ms, losses = [], []
+    torch.cuda.synchronize()
+    reset_launches()
+    with capturing(expand, "expand_pairs") as k1, \
+            capturing(pack, "align_copy") as k2, \
+            capturing(composite_t, "composite_forward") as k3, \
+            capturing(composite_t, "composite_backward") as k4, \
+            capturing(segreduce, "segment_sum_sorted") as k5, \
+            capturing(segreduce, "sort_by_key") as srt:
+        for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+            ev0.record()
+            state, stats = train_step(state, target, viewmat, intr,
+                                      torch.tensor(float(i)), 3)
+            ev1.record()
+            torch.cuda.synchronize()
+            ms.append(ev0.elapsed_time(ev1))
+            losses.append(float(stats.loss))
+            check(not bool(stats.pair_overflow) and not bool(stats.hit_overflow),
+                  f"step {i} overflowed: {int(stats.num_pairs)} pairs, "
+                  f"busiest tile {int(stats.max_tile_hits)}")
+            check(np.isfinite(losses[-1]), f"step {i}: loss {losses[-1]}")
+            # A non-finite gradient would make Adam's first moment so.
+            check(all(bool(torch.isfinite(m).all())
+                      for m in state.adam.m.values()),
+                  f"step {i}: gradients not finite")
+            if i == 0:
+                pairs0, hits0 = int(stats.num_pairs), int(stats.max_tile_hits)
+    launches = read_launches()
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    for name, count in launches.items():
+        check(count == steps, f"{name} launched {count} times in {steps} "
+              f"train steps (expected 1 per step)")
+    step_ms = float(np.mean(ms[TRAIN_WARMUP:]))
+    print(f"train step {w}x{h} 1M SH3: {step_ms:.3f} ms/step "
+          f"(steps {', '.join(f'{m:.1f}' for m in ms)} ms), "
+          f"{w * h / (step_ms * 1e-3) / 1e6:.4f} Mpix/s; step 0: {pairs0} "
+          f"pairs, busiest tile {hits0}; loss {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; launches {launches}", flush=True)
+
+    del state
+    with torch.no_grad():
+        rows = forward_kernel_rows(dev, k1[0], k2[0], k3[0], errs,
+                                   "train frame")
+        rows += backward_kernel_rows(dev, k4[0], k5[0], srt[0], errs)
+    return rows, launches, step_ms
+
+
+def backward_kernel_rows(dev, a4, a5, sort_args, errs):
+    """K4 and K5 timed alone on the inputs a train step gave them, beside
+    their plain versions, their bounds and (K5) index_add_; the gid sort
+    timed on its own inputs. Returns their kernel rows."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.ops import composite_t, pack, segreduce
+
+    check_backward_kernels(a4, a5, errs, "train frame")
+    cfg, astart, astop, k_last = a4[0], a4[1], a4[2], a4[7]
+    got = composite_t.composite_backward(*a4)
+    k_ms = cuda_ms(lambda: composite_t.composite_backward(*a4))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    composite_t.composite_backward_plain(*a4)
+    torch.cuda.synchronize()
+    pl_ms = (time.perf_counter() - t0) * 1e3
+    counts = (astop - astart).long()
+    busiest = int(torch.argmax(counts))
+    rng = np.random.default_rng(0)
+    pick = [busiest] + [int(t) for t in rng.choice(cfg.num_tiles, 7, replace=False)]
+    sub = composite_t.composite_backward_plain(
+        *a4, tiles=torch.tensor(pick, device=dev))
+    cols = torch.cat([torch.arange(int(astart[t]), int(astop[t]), device=dev)
+                      for t in pick])
+    err8 = float((got[:, cols] - sub[:, cols]).abs().max())
+    check(err8 == 0.0, f"backward compositor differs from its plain version "
+          f"on 8 tiles of the train frame by {err8}")
+    entries = int(counts.sum())
+    # The (pixel, entry) pairs the gradient needs: each pixel inside the
+    # image, down from its last contributor (pixels past the image's edge
+    # get no colour cotangent).
+    walked = int(((k_last.long() + 1) * in_image(cfg, dev)).sum())
+    # 53 f32 operations per such pair (exp counted as one; comparisons and
+    # selects not counted), as csrc/composite_bwd.cu counts them.
+    k4_ops = 53 * walked
+    k4_bytes = 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24
+    rows = [("composite_bwd", "tpugs_torch/csrc/composite_bwd.cu",
+             "tpugs/ops/pallas/composite_t.py:343", k_ms, pl_ms, k4_bytes,
+             k4_ops, None)]
+    print(f"backward compositor on the train frame: {entries} entries, "
+          f"{walked} in-image (pixel, entry) pairs to the last contributor; "
+          f"bit-identical to its plain version (also on 8 tiles incl. the "
+          f"busiest, {int(counts[busiest])} entries)", flush=True)
+
+    # K5 alone, its plain version, the gid sort before it, and the library
+    # yardstick: one index_add_ of the same masked (unsorted) columns.
+    key, mcols, n_red = sort_args
+    got = segreduce.segment_sum_sorted(*a5)
+    k_ms = cuda_ms(lambda: segreduce.segment_sum_sorted(*a5))
+    pl_ms = cuda_ms(lambda: segreduce.segment_sum_sorted_plain(*a5), reps=3)
+    sort_ms = cuda_ms(lambda: segreduce.sort_by_key(key, mcols, n_red))
+    idx = torch.clamp(key, max=n_red).long()
+    acc = torch.zeros((pack.NUM_ATTR, n_red + 1), device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(1, idx, mcols))
+    lib = torch.zeros_like(acc).index_add_(1, idx, mcols)[:, :n_red]
+    lib_err = float((lib - got).abs().max())
+    check(lib_err <= 1e-4 * float(got.abs().max()),
+          f"index_add_ yardstick differs from the segment sum by {lib_err}")
+    valid_slots = int(a5[1][-1])
+    k5_bytes = 10 * valid_slots * 4 + pack.NUM_ATTR * n_red * 4
+    rows.append(("segreduce", "tpugs_torch/csrc/segreduce.cu",
+                 "tpugs/ops/pallas/segreduce.py:200", k_ms, pl_ms, k5_bytes,
+                 valid_slots * pack.NUM_ATTR, lib_ms))
+    print(f"segment sum: {valid_slots} valid slots of {key.shape[0]} into "
+          f"{n_red} gaussians, bit-identical to its plain version; gid sort "
+          f"(torch.sort + column gather) {sort_ms:.4f} ms; index_add_ "
+          f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g})", flush=True)
+    return rows
+
+
+def phase_train_cli(tmp, dev):
+    """The train CLI on a GT dataset at the garden shape; returns the
+    launches of its run."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.apps import train as train_app
+    from tpugs_torch.core import init as init_mod
+    from tpugs_torch.io.checkpoint import load_train_checkpoint
+    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
+
+    ds = os.path.join(tmp, "gt_scene")
+    out_dir = os.path.join(tmp, "train_out")
+    t0 = time.perf_counter()
+    model = make_gt_model(TRAIN_N, device=dev)
+    write_gt_dataset(ds, model, num_views=TRAIN_CLI_VIEWS, width=TRAIN_W,
+                     height=TRAIN_H, sparse_points=TRAIN_N, sh_degree=3)
+    del model
+    torch.cuda.synchronize()
+    write_s = time.perf_counter() - t0
+
+    knn_s = []
+    knn = init_mod.mean_knn_distance
+
+    def timed_knn(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d = knn(*args, **kw)
+        torch.cuda.synchronize()
+        knn_s.append(time.perf_counter() - t)
+        return d
+
+    argv = ["-d", ds, "-o", out_dir, "-i", str(TRAIN_CLI_STEPS),
+            "--no-densify", "--sh-degree", "3", "--log-every", "5",
+            "--save-every", "0", "--max-hits", str(TRAIN_MAX_HITS),
+            "--device", dev.type]
+    log = io.StringIO()
+    init_mod.mean_knn_distance = timed_knn
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = train_app.main(argv)
+    finally:
+        init_mod.mean_knn_distance = knn
+    cli_s = time.perf_counter() - t0
+    launches = read_launches()
+    text = log.getvalue()
+    check(rc == 0, f"train CLI returned {rc}")
+    for line in text.splitlines():
+        if "OVERFLOW" in line or line.startswith(("auto pair", "trained")):
+            print(f"train cli: {line}", flush=True)
+    hist = [json.loads(x) for x in open(os.path.join(out_dir, "history.jsonl"))]
+    check([r["step"] for r in hist] == list(range(0, TRAIN_CLI_STEPS, 5)),
+          f"history steps {[r['step'] for r in hist]}")
+    check(all(np.isfinite(r["loss"]) for r in hist), "non-finite loss")
+    last_log = [ln for ln in text.splitlines()
+                if ln.startswith(f"[{hist[-1]['step']}] loss=")]
+    check(f"[{TRAIN_CLI_STEPS}] OVERFLOW" not in text and len(last_log) == 1
+          and "OVERFLOW" not in last_log[0],
+          "overflow left after the grow policy")
+    for name, count in launches.items():
+        check(count == TRAIN_CLI_STEPS, f"{name} launched {count} times in "
+              f"{TRAIN_CLI_STEPS} CLI steps (expected 1 per step)")
+    m = re.search(r"trained (\d+) iters in ([\d.]+)s \(([\d.]+) it/s\)", text)
+    check(m is not None and int(m.group(1)) == TRAIN_CLI_STEPS,
+          "no 'trained' line")
+    state, step = load_train_checkpoint(
+        os.path.join(out_dir, f"ckpt_{TRAIN_CLI_STEPS:07d}.npz"), dev)
+    check(step == TRAIN_CLI_STEPS and int(state.adam.count) == TRAIN_CLI_STEPS,
+          "checkpoint step")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+          "checkpoint params not finite")
+    steps_s = float(m.group(2))
+    print(f"train cli {TRAIN_W}x{TRAIN_H}, {TRAIN_CLI_VIEWS} views, 1M "
+          f"sparse points: {float(m.group(3)):.2f} it/s; losses "
+          f"{[round(r['loss'], 5) for r in hist]}; seconds: dataset write "
+          f"{write_s:.1f}, CLI {cli_s:.1f} = init {cli_s - steps_s:.1f} "
+          f"(kNN {sum(knn_s):.1f}) + steps {steps_s:.1f}; launches "
+          f"{launches}", flush=True)
+    return launches
+
+
+def bound(nbytes: int, ops: int):
+    """(least ms for this work on the card, "bytes" or "operations")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def print_rows(rows, where: str):
+    for name, _, _, ms, plain_ms, nbytes, ops, lib_ms in rows:
+        bound_ms, bound_by = bound(nbytes, ops)
+        print(f"{where} {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}), plain {plain_ms:.2f} ms, library "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
+
+
+def kernel_table(rows, errs, launches_by_path, main_path: str):
+    """The {"kernels": [...]} entries from the main path's rows: each
+    kernel's launches there (and on every path driven), times, bound and
+    library time."""
     table = []
     for name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms in rows:
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        bound_ms, bound_by = bound(nbytes, ops)
         table.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[{"expand": "expand_pairs",
-                                  "align_copy": "align_copy",
-                                  "composite_fwd": "composite_forward"}[name]],
+            "launches": launches_by_path[main_path][name],
+            "launches_by_path": {path: counts[name] for path, counts
+                                 in launches_by_path.items()},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
-        print(f"{name}: {ms:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
-              f"({table[-1]['bound_by']}), plain {plain_ms:.2f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
     return table
 
 
@@ -392,11 +835,22 @@ def main() -> int:
     errs = {}
     with Phase("kernels", 300):
         phase_kernels(dev, errs)
+    with Phase("grad-kernels", 300):
+        phase_grad_kernels(dev, errs)
     with tempfile.TemporaryDirectory() as tmp:
         with Phase("cli", 600):
-            params, launches, _ = phase_cli(tmp, dev)
+            params, cli_launches, _ = phase_cli(tmp, dev)
         with Phase("timing", 480):
-            table = phase_timing(dev, params, launches, errs)
+            print_rows(phase_timing(dev, params, errs), "render frame")
+        del params
+        with Phase("train-step", 600):
+            rows, step_launches, _ = phase_train_step(dev, errs)
+            print_rows(rows, "train frame")
+        with Phase("train-cli", 900):
+            train_cli_launches = phase_train_cli(tmp, dev)
+    table = kernel_table(rows, errs, {
+        "train_step": step_launches, "train_cli": train_cli_launches,
+        "render_cli": cli_launches}, "train_step")
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions on the card, and a
-render on the card against the same render on the CPU. Marked `cuda`: they
+render and its gradients on the card against the same on the CPU. Marked `cuda`: they
 skip where there is no NVIDIA GPU (with nvcc). They import no JAX, so on a
 card machine without it run them past tests/conftest.py (which imports JAX):
 `python -m pytest tests/test_torch_cuda.py -m cuda --noconftest`."""
@@ -9,7 +9,7 @@ import torch
 
 from tpugs_torch.core.gaussians import params_from_numpy
 from tpugs_torch.ops import binning as TB
-from tpugs_torch.ops import composite_t, expand, pack
+from tpugs_torch.ops import composite_t, expand, pack, segreduce
 from tpugs_torch.ops.projection import project_gaussians
 from tpugs_torch.ops.render import RasterConfig, render
 from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
@@ -97,3 +97,77 @@ def test_render_on_card_matches_cpu(dev):
     assert (diff > 1e-4).mean() < 1e-3
     pairs = [int(o.num_pairs) for o in outs]
     assert abs(pairs[0] - pairs[1]) <= 1e-4 * pairs[1]
+
+
+def _aligned(dev, w, h, tile, seed):
+    proj = _proj(dev, w, h, seed)
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+                       pair_capacity=1 << 20, max_hits_per_tile=1 << 16)
+    b = TB.bin_gaussians_expand_kernel(proj, w, h, tile, tile, cfg.pair_capacity)
+    astart, astop, counts = pack.aligned_offsets(b.tile_start, b.tile_stop)
+    attr_c = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
+                                     proj.rgb, proj.opac, b.pair_gauss.shape[0])
+    attr = pack.align_copy(attr_c, b.tile_start, astart, counts,
+                           pack.aligned_length(astart, counts))
+    return cfg, astart, astop, attr
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64])
+def test_backward_kernel_bit_identical(dev, tile):
+    """The backward kernel against its plain version on the slots that hold
+    a pair: the same arithmetic in the same order (round-to-nearest
+    intrinsics, the plain version repeating the kernel's summation tree)."""
+    cfg, astart, astop, attr = _aligned(dev, 192, 128, tile, 3)
+    _, final_t, _, k_last = composite_t.composite_forward(cfg, astart, astop, attr)
+    g = torch.Generator(device="cpu").manual_seed(tile)
+    d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
+    r0 = torch.randn((cfg.num_tiles, cfg.pix), generator=g).to(dev) * final_t
+    args = (cfg, astart, astop, attr, d_color, r0, final_t, k_last)
+    got = composite_t.composite_backward(*args)
+    ref = composite_t.composite_backward_plain(*args)
+    valid = attr[pack.VALID_ROW] > 0
+    assert torch.isfinite(got[:, valid]).all()
+    assert torch.equal(got[:, valid], ref[:, valid])
+
+
+@pytest.mark.parametrize("p,n", [(100_000, 20_000), (5, 3), (4096, 1)])
+def test_segment_sum_kernel_bit_identical(dev, p, n):
+    g = torch.Generator(device="cpu").manual_seed(p)
+    key = torch.randint(0, n, (p,), generator=g, dtype=torch.int32)
+    key[torch.rand(p, generator=g) < 0.2] = segreduce.SENTINEL
+    cols = torch.randn((pack.NUM_ATTR, p), generator=g)
+    cols[:, key == segreduce.SENTINEL] = 0.0
+    scols, bounds = segreduce.sort_by_key(key.to(dev), cols.to(dev), n)
+    got = segreduce.segment_sum_sorted(scols, bounds, n)
+    assert torch.equal(got, segreduce.segment_sum_sorted_plain(scols, bounds, n))
+    ref = torch.zeros((pack.NUM_ATTR, n), dtype=torch.float64)
+    ok = key != segreduce.SENTINEL
+    ref.index_add_(1, key[ok].long(), cols[:, ok].double())
+    np.testing.assert_allclose(np_(got), ref.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_render_gradients_on_card_match_cpu(dev):
+    p = synthetic_params_numpy(3000, seed=4)
+    cam = orbit_trajectory(p["means"], 4, 160, 96)[2]
+    cfg = RasterConfig(img_h=96, img_w=160, tile_h=16, tile_w=16,
+                       pair_capacity=1 << 18, max_hits_per_tile=4096)
+    c = torch.randn((96, 160, 3), generator=torch.Generator().manual_seed(0))
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, d).items()}
+        out = render(
+            *[tp[k] for k in NAMES],
+            torch.ones(3000, dtype=torch.bool, device=d),
+            torch.as_tensor(cam.world_to_camera(), dtype=torch.float32, device=d),
+            torch.as_tensor(cam.intrinsics_array(), device=d), cfg, 3,
+            torch.zeros(3, device=d))
+        gs = torch.autograd.grad((out.color * c.to(d)).sum(),
+                                 [tp[k] for k in NAMES])
+        grads.append([np_(x) for x in gs])
+    # As for the image: projection is ulps apart between the devices, which
+    # can move a rare rect or cull boundary and so one gaussian's gradient.
+    for name, a, b in zip(NAMES, *grads):
+        assert np.isfinite(a).all(), name
+        scale = np.abs(b).max()
+        close = np.abs(a - b) <= 1e-3 * np.abs(b) + 1e-4 * scale
+        assert close.mean() >= 0.999, (name, close.mean())

@@ -1,7 +1,7 @@
 """Guards of the port: it imports nothing of JAX or tpugs, its entry points
 refuse to fall back to the CPU, its kernel wrappers send CPU tensors to the
-plain versions and never swallow an error, and its build raises with
-nvcc's message."""
+plain versions and never swallow an error, its build raises with nvcc's
+message, and what is not yet ported raises instead of doing nothing."""
 import ast
 import pathlib
 import subprocess
@@ -14,7 +14,7 @@ from tpugs_torch import cuda_lib
 from tpugs_torch.apps import render as render_app
 from tpugs_torch.device import resolve_device
 from tpugs_torch.ops import binning as TB
-from tpugs_torch.ops import composite_t, expand, pack
+from tpugs_torch.ops import composite_t, expand, pack, segreduce
 from tpugs_torch.ops.rasterize_tiled import RasterConfig
 
 torch.set_num_threads(1)
@@ -76,6 +76,66 @@ def test_device_resolution_never_falls_back(monkeypatch):
         resolve_device("meta")
 
 
+def _make_gt_model(tmp_path, **kw):
+    from tpugs_torch.utils.gt_scene import make_gt_model
+
+    return make_gt_model(20, **kw)
+
+
+def _init_from_sfm(tmp_path, **kw):
+    import numpy as np
+
+    from tpugs_torch.core.init import init_from_sfm
+
+    pts = np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32)
+    return init_from_sfm(pts, np.full((8, 3), 0.5, np.float32), 16, **kw)
+
+
+def _create(tmp_path, **kw):
+    from tpugs_torch.core.gaussians import GaussianState
+
+    z = torch.zeros
+    return GaussianState.create(z(4, 3), z(4, 4), z(4, 3), z(4), z(4, 3, 1),
+                                **kw)
+
+
+def _adc_init(tmp_path, **kw):
+    from tpugs_torch.optim.densify_adc import adc_init
+
+    return adc_init(8, **kw)
+
+
+def _load_checkpoint(tmp_path, **kw):
+    from tpugs_torch.io.checkpoint import (load_train_checkpoint,
+                                           save_train_checkpoint)
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.train.trainer import TrainState, initial_key
+
+    gs = _create(tmp_path, device="cpu")
+    state = TrainState(params=gs.params(), alive=gs.alive,
+                       adam=adam_init(gs.params()),
+                       adc=_adc_init(tmp_path, device="cpu"), key=initial_key(0))
+    path = str(tmp_path / "c.npz")
+    save_train_checkpoint(path, state, 3)
+    return load_train_checkpoint(path, **kw)[0]
+
+
+@pytest.mark.parametrize("make", [_make_gt_model, _init_from_sfm, _create,
+                                  _adc_init, _load_checkpoint])
+def test_state_helpers_default_to_the_card(make, monkeypatch, tmp_path):
+    """The helpers that put model or train state on a device take the card
+    unless the CPU is asked for, as the entry points do."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make(tmp_path)
+    out = make(tmp_path, device="cpu")
+    tensors = (list(out.values()) if isinstance(out, dict)
+               else [v for v in vars(out).values() if isinstance(v, torch.Tensor)]
+               + [v for d in vars(out).values() if isinstance(d, dict)
+                  for v in d.values()])
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+
+
 def test_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
     from tpugs_torch.io.ply import write_gaussian_ply_numpy
     from tpugs_torch.utils.synthetic import synthetic_params_numpy
@@ -114,10 +174,15 @@ def _wrappers(device="cpu"):
          (z(16, 256), z(12, dt=i32), z(12, dt=i32), z(12, dt=i32), 128)),
         (composite_t.composite_forward, (composite_t, "composite_forward_plain"),
          (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128))),
+        (composite_t.composite_backward, (composite_t, "composite_backward_plain"),
+         (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128), z(12, 256, 3),
+          z(12, 256), z(12, 256), z(12, 256, dt=i32))),
+        (segreduce.segment_sum_sorted, (segreduce, "segment_sum_sorted_plain"),
+         (z(9, 64), z(5, dt=i32), 4)),
     ]
 
 
-@pytest.mark.parametrize("k", range(3))
+@pytest.mark.parametrize("k", range(5))
 def test_cpu_tensor_reaches_the_plain_version(monkeypatch, k):
     wrapper, (mod, plain), args = _wrappers()[k]
     before = wrapper.launches
@@ -127,7 +192,7 @@ def test_cpu_tensor_reaches_the_plain_version(monkeypatch, k):
     assert wrapper.launches == before
 
 
-@pytest.mark.parametrize("k", range(3))
+@pytest.mark.parametrize("k", range(5))
 def test_non_cpu_tensor_goes_to_the_kernel_and_errors_propagate(monkeypatch, k):
     """A tensor off the CPU never takes the plain version: the wrapper goes
     to the kernel library, and its failure reaches the caller."""
@@ -172,7 +237,8 @@ def test_build_failure_raises_with_nvcc_output(monkeypatch, tmp_path):
 def test_build_command_and_key():
     srcs = cuda_lib.sources()
     assert {s.name for s in srcs} == {"expand.cu", "align_copy.cu",
-                                      "composite_fwd.cu"}
+                                      "composite_fwd.cu", "composite_bwd.cu",
+                                      "segreduce.cu"}
     for s in srcs:
         text = s.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
@@ -181,5 +247,77 @@ def test_build_command_and_key():
     assert path.parent.parent == cuda_lib.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.ARCH_FLAGS
     assert set(cuda_lib.SIGNATURES) >= {"tpugs_expand", "tpugs_align_copy",
-                                        "tpugs_composite_fwd"}
+                                        "tpugs_composite_fwd",
+                                        "tpugs_composite_bwd",
+                                        "tpugs_segreduce_sorted"}
 
+
+
+def _train_scene(tmp_path):
+    from tests.synthetic_scene import make_scene
+
+    root = str(tmp_path / "scene")
+    make_scene(root, num_images=9, width=32, height=24, num_points=20)
+    return root, ["-d", root, "-o", str(tmp_path / "out"), "-i", "2",
+                  "--capacity", "32", "--sh-degree", "0", "--log-every", "1",
+                  "--save-every", "0", "--pair-capacity", "4096",
+                  "--max-hits", "64"]
+
+
+def test_train_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
+    from tpugs_torch.apps import train as train_app
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _, argv = _train_scene(tmp_path)
+    argv += ["--no-densify"]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_app.main(argv)
+    assert not (tmp_path / "out").exists()
+    assert train_app.main(argv + ["--device", "cpu", "--random-bg"]) == 0
+    assert (tmp_path / "out" / "ckpt_0000002.npz").exists()
+
+
+@pytest.mark.parametrize("extra,match", [
+    ([], "densify_mode='adc'.*not yet ported.*A8"),
+    (["--mcmc"], "densify_mode='mcmc'.*not yet ported.*A8"),
+    (["--no-densify", "--mesh", "data=2"], "mesh.*not yet ported.*A12"),
+    (["--no-densify", "--trace-dir", "t"], "trace-dir.*not yet ported"),
+])
+def test_train_modes_not_yet_ported_raise(tmp_path, extra, match):
+    from tpugs_torch.apps import train as train_app
+
+    _, argv = _train_scene(tmp_path)
+    with pytest.raises(NotImplementedError, match=match):
+        train_app.main(argv + extra + ["--device", "cpu"])
+
+
+def test_trainer_evaluate_not_yet_ported(tmp_path):
+    from tpugs_torch.train.trainer import TrainConfig, Trainer
+
+    root, _ = _train_scene(tmp_path)
+    tr = Trainer(root, TrainConfig(densify_mode="none", capacity=32,
+                                   output_dir=str(tmp_path / "o")),
+                 log_fn=lambda *_: None, device="cpu")
+    with pytest.raises(NotImplementedError, match="evaluate.*not yet ported"):
+        tr.evaluate()
+
+
+def test_backward_through_forward_only_render_raises():
+    from tpugs_torch.ops.render import render
+    from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
+                                             synthetic_params)
+
+    p = {k: v.requires_grad_(True) for k, v in synthetic_params(30).items()}
+    cfg = RasterConfig(img_h=24, img_w=32)
+    out = render(p["means"], p["quats"], p["log_scales"], p["opacity_logits"],
+                 p["sh"], torch.ones(30, dtype=torch.bool), torch.eye(4),
+                 torch.from_numpy(synthetic_intrinsics_numpy(32, 24)), cfg, 3,
+                 torch.zeros(3), need_grads=False)
+    with pytest.raises(NotImplementedError, match="composite_tiles_pallas"):
+        (out.color.sum() + out.final_T.sum()).backward()
+    with torch.no_grad():
+        out = render(p["means"], p["quats"], p["log_scales"],
+                     p["opacity_logits"], p["sh"], torch.ones(30, dtype=torch.bool),
+                     torch.eye(4), torch.from_numpy(synthetic_intrinsics_numpy(32, 24)),
+                     cfg, 3, torch.zeros(3), need_grads=False)
+    assert out.color.grad_fn is None

@@ -1,1 +1,1 @@
-"""Core math: cameras, transforms, SH, gaussian parameters."""
+"""Core math: cameras, transforms, SH, gaussian state and its SfM init."""

@@ -6,8 +6,35 @@ matrix and the intrinsics (fx, fy, cx, cy).
 from __future__ import annotations
 
 import dataclasses
+import enum
 
 import numpy as np
+
+
+class CameraModel(enum.IntEnum):
+    """COLMAP camera model ids."""
+
+    SIMPLE_PINHOLE = 0
+    PINHOLE = 1
+    SIMPLE_RADIAL = 2
+    RADIAL = 3
+    OPENCV = 4
+
+
+def qvec_to_rotmat(qvec: np.ndarray) -> np.ndarray:
+    """COLMAP (w, x, y, z) quaternion -> 3x3 rotation (float64)."""
+    w, x, y, z = [float(v) for v in qvec]
+    n = np.sqrt(w * w + x * x + y * y + z * z)
+    if n > 0:
+        w, x, y, z = w / n, x / n, y / n, z / n
+    return np.array(
+        [
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ],
+        dtype=np.float64,
+    )
 
 
 @dataclasses.dataclass
@@ -37,6 +64,18 @@ class CameraInfo:
     def camera_center(self) -> np.ndarray:
         """-R^T t."""
         return -self.R.T @ self.t
+
+    def scaled(self, scale: float) -> "CameraInfo":
+        """Resolution and intrinsics divided by `scale`."""
+        return dataclasses.replace(
+            self,
+            width=int(round(self.width / scale)),
+            height=int(round(self.height / scale)),
+            fx=self.fx / scale,
+            fy=self.fy / scale,
+            cx=self.cx / scale,
+            cy=self.cy / scale,
+        )
 
     def intrinsics_array(self) -> np.ndarray:
         return np.array([self.fx, self.fy, self.cx, self.cy], dtype=np.float32)

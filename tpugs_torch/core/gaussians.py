@@ -1,16 +1,26 @@
-"""Gaussian model parameters on the port's side.
+"""Gaussian model parameters on the port's side, as in
+tpugs/core/gaussians.py.
 
-The model is the JAX package's five learnable arrays: means [N, 3], quats
-[N, 4] (w, x, y, z, unnormalised), log_scales [N, 3], opacity_logits [N]
-and sh [N, 3, C]. `params_from_numpy` carries them across as tensors, so
-both packages render the same model.
+The model is five learnable arrays: means [N, 3], quats [N, 4] (w, x, y, z,
+unnormalised), log_scales [N, 3], opacity_logits [N] and sh [N, 3, C].
+`GaussianState` pads them to a fixed capacity with an `alive` mask: dead
+slots are never rendered. `params_from_numpy` carries the arrays across as
+tensors, so both packages render the same model.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
+from tpugs_torch.device import resolve_device
+
 PARAM_NAMES = ("means", "quats", "log_scales", "opacity_logits", "sh")
+
+
+def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    return torch.log(x) - torch.log1p(-x)
 
 
 def params_from_numpy(params: dict[str, np.ndarray],
@@ -23,3 +33,64 @@ def params_from_numpy(params: dict[str, np.ndarray],
         out[name] = torch.from_numpy(arr).to(device)
     out["opacity_logits"] = out["opacity_logits"].reshape(-1)
     return out
+
+
+@dataclasses.dataclass
+class GaussianState:
+    """Structure-of-arrays model padded to a capacity Nc: the five
+    parameter arrays and alive [Nc] bool (False = free slot)."""
+
+    means: torch.Tensor
+    quats: torch.Tensor
+    log_scales: torch.Tensor
+    opacity_logits: torch.Tensor
+    sh: torch.Tensor
+    alive: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.means.shape[0]
+
+    def params(self) -> dict:
+        """The five learnable arrays as a dict (the optimizer's groups)."""
+        return {
+            "means": self.means,
+            "sh": self.sh,
+            "opacity_logits": self.opacity_logits,
+            "log_scales": self.log_scales,
+            "quats": self.quats,
+        }
+
+    @staticmethod
+    def create(means, quats, log_scales, opacity_logits, sh,
+               capacity: int | None = None, device="cuda") -> "GaussianState":
+        """From dense arrays (numpy or tensors) of N live gaussians, padded
+        with zeros to `capacity`, on `device` ('cuda' unless 'cpu' is asked
+        for)."""
+        device = resolve_device(device)
+        n = means.shape[0]
+        cap = capacity if capacity is not None else n
+        if cap < n:
+            raise ValueError(f"capacity {cap} < {n} gaussians")
+
+        def pad(x):
+            x = torch.as_tensor(x, dtype=torch.float32, device=device)
+            out = torch.zeros((cap,) + tuple(x.shape[1:]), dtype=torch.float32,
+                              device=device)
+            out[:n] = x
+            return out
+
+        return GaussianState(
+            means=pad(means),
+            quats=pad(quats),
+            log_scales=pad(log_scales),
+            opacity_logits=pad(torch.as_tensor(opacity_logits).reshape(n)),
+            sh=pad(sh),
+            alive=torch.arange(cap, device=device) < n,
+        )
+
+    def compact_arrays(self) -> dict:
+        """The live gaussians as dense numpy arrays (for PLY export)."""
+        idx = np.nonzero(self.alive.cpu().numpy())[0]
+        return {name: getattr(self, name).detach().cpu().numpy()[idx]
+                for name in PARAM_NAMES}

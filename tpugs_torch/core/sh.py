@@ -57,3 +57,8 @@ def eval_sh(degree: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.T
     basis = sh_basis(dirs, degree)
     k = basis.shape[-1]
     return torch.einsum("...ck,...k->...c", sh_coeffs[..., :k], basis) + 0.5
+
+
+def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
+    """DC coefficients whose degree-0 colour is rgb: (rgb - 0.5) / C0."""
+    return (rgb - 0.5) / SH_C0

@@ -1,0 +1,59 @@
+// Sorted segment sum: per-gaussian sums of the nine per-pair gradient
+// columns, once the pairs are sorted by gaussian id.
+//
+// Replaces: tpugs/ops/pallas/segreduce.py::_segreduce_sorted_kernel.
+//
+// Bound on the H100: bytes. Each sorted slot's nine columns are read once
+// and each gaussian's nine sums written once; there is one add per byte
+// pair read, far below the card's rate of operations.
+//
+// Design:
+// - The sort by gaussian id and the per-gaussian run bounds (one
+//   searchsorted of n + 1 ids over the sorted keys) stay outside, in
+//   PyTorch, as the JAX package leaves its sort to XLA. Slots whose key is
+//   the sentinel sort past every gaussian's run and are never read.
+// - One thread per gaussian sums its run [bounds[g], bounds[g + 1]) in
+//   sorted order for each column and writes column g of the [9, n] output
+//   (zero for an empty run). The TPU kernel's equality one-hot matmul over
+//   512-gaussian blocks was a matrix-unit artifact and is not carried over.
+// - Neighbouring threads own neighbouring runs, so a warp's reads of one
+//   column fall on a short contiguous span. No atomics: the sums are
+//   deterministic for a given sort, and the plain PyTorch version adds in
+//   the same order.
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kCols = 9;
+
+__global__ void __launch_bounds__(kThreads)
+segreduce_sorted_kernel(const float* __restrict__ cols, long long p,
+                        const int* __restrict__ bounds, int n,
+                        float* __restrict__ out) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n) return;  // no barrier in this kernel
+  const int lo = bounds[g];
+  const int hi = bounds[g + 1];
+#pragma unroll
+  for (int r = 0; r < kCols; ++r) {
+    const float* c = cols + r * p;
+    float s = 0.0f;
+    for (int i = lo; i < hi; ++i) s = __fadd_rn(s, c[i]);
+    out[(long long)r * n + g] = s;
+  }
+}
+
+}  // namespace
+
+extern "C" int tpugs_segreduce_sorted(int device, const void* cols,
+                                      long long p, const void* bounds, int n,
+                                      void* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int blocks = (n + kThreads - 1) / kThreads;
+  segreduce_sorted_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)cols, p, (const int*)bounds, n, (float*)out);
+  return (int)cudaGetLastError();
+}

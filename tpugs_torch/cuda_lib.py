@@ -1,11 +1,11 @@
 """Build and load the port's one kernel library, `libtpugs_kernels.so`.
 
 The CUDA sources in `tpugs_torch/csrc/*.cu` export plain C functions and
-include no PyTorch header, so `nvcc` alone builds them in seconds:
+include no PyTorch header, so one `nvcc` call builds them in seconds:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o tpugs_torch/_build/<hash>/libtpugs_kernels.so \\
-         tpugs_torch/csrc/*.cu
+         -Xcompiler -fPIC -Xptxas -v \\
+         -o tpugs_torch/_build/<hash>/libtpugs_kernels.so tpugs_torch/csrc/*.cu
 
 The build runs at first use, into a directory keyed by a hash of the
 sources and flags, and is reused while they stay the same. The library is
@@ -41,6 +41,9 @@ SIGNATURES = {
     "tpugs_align_copy": [_I, _P, _L, _P, _P, _P, _I, _P, _L, _P],
     "tpugs_composite_fwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P],
+    "tpugs_composite_bwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                            _P, _P, _P, _P],
+    "tpugs_segreduce_sorted": [_I, _P, _L, _P, _I, _P, _P],
 }
 
 _lib = None

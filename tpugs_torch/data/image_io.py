@@ -1,0 +1,22 @@
+"""Image loading and resizing (PIL), as in tpugs/data/image_io.py: float32
+[H, W, 3] in [0, 1], alpha dropped, bilinear resize."""
+from __future__ import annotations
+
+import numpy as np
+from PIL import Image
+
+
+def load_image(path: str) -> np.ndarray:
+    """-> float32 [H, W, 3] in [0, 1]."""
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        return np.asarray(im, np.float32) / 255.0
+
+
+def load_image_resized(path: str, new_w: int, new_h: int) -> np.ndarray:
+    """Load, resized to (new_w, new_h) when it differs."""
+    with Image.open(path) as im:
+        im = im.convert("RGB")
+        if im.size != (new_w, new_h):
+            im = im.resize((new_w, new_h), Image.BILINEAR)
+        return np.asarray(im, np.float32) / 255.0

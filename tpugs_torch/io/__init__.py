@@ -1,1 +1,1 @@
-"""Model I/O: 3DGS PLY files."""
+"""Model I/O: 3DGS PLY files and training checkpoints."""

@@ -1,5 +1,7 @@
-"""Forward compositor: the kernel wrapper and its plain PyTorch version, with
-the contract of tpugs/ops/pallas/composite_t.py::composite_forward_pallas.
+"""Forward and backward compositors: the kernel wrappers and their plain
+PyTorch versions, with the contracts of
+tpugs/ops/pallas/composite_t.py::composite_forward_pallas and
+composite_backward_pallas (attribute-major output).
 
 Per tile, the entries k = 0 .. num-1 of its aligned segment
 [astart, astop) are walked front to back. For each pixel:
@@ -13,22 +15,35 @@ Per tile, the entries k = 0 .. num-1 of its aligned segment
 Outputs: color before background [T, PIX, 3], final T [T, PIX], n_contrib
 [T, PIX] int32 and k_last [T, PIX] int32 (-1 where nothing contributed).
 
-The CUDA kernel is csrc/composite_fwd.cu (it replaces
-tpugs/ops/pallas/composite_t.py::_fwd_kernel). A CUDA tensor goes to the
-kernel, a CPU tensor to `composite_forward_plain`.
+The backward walks each tile from its largest k_last down to entry 0 and
+recovers T before each entry by division, T /= max(1 - a, 1e-5), with
+a = alpha where the entry contributed (passes and k <= k_last) and 0
+elsewhere; the suffix sum R, from r0 = (dC.bg + dL/dT_final) T_final, gives
+dL/dalpha = T dC.rgb - R / (1 - a). The opacity and power gradients are
+zero where opac * gauss >= 0.99 (the clamp). Output: the 9 per-pair
+gradient rows [NUM_ATTR, P_al] (d x, d y, d ca, d cb, d cc, d opac, d r,
+d g, d b, with the conic in its pre-scaled form); columns outside the
+tiles' [astart, astop) are not written.
+
+The CUDA kernels are csrc/composite_fwd.cu and csrc/composite_bwd.cu (they
+replace tpugs/ops/pallas/composite_t.py::_fwd_kernel and _bwd_kernel). A
+CUDA tensor goes to the kernel, a CPU tensor to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
 from tpugs_torch import cuda_lib
-from tpugs_torch.ops.pack import ATTR_ROWS
+from tpugs_torch.ops.pack import ATTR_ROWS, NUM_ATTR
 from tpugs_torch.ops.rasterize_tiled import (ALPHA_CLAMP, ALPHA_MIN,
                                              T_THRESHOLD, RasterConfig,
                                              _pixel_coords)
 
 EXIT_CHECK = 64  # plain version: steps between drops of finished tiles
-MAX_TILE_PIX = 16 * 256  # the kernel: 256 threads of at most 16 pixels
+BLOCK = 256  # the kernels' threads per tile
+WARP = 32
+MAX_TILE_PIX = 16 * BLOCK  # the kernels: 256 threads of at most 16 pixels
+ONE_MINUS_MIN = 1e-5  # floor of 1 - alpha when T is recovered by division
 
 
 def composite_forward_plain(cfg: RasterConfig, astart: torch.Tensor,
@@ -123,3 +138,165 @@ def composite_forward(cfg: RasterConfig, astart: torch.Tensor,
 
 
 composite_forward.launches = 0
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum [..., PPT * BLOCK] over the last axis in the backward kernel's
+    order: each thread adds its PPT pixels (pixel p = thread + i * BLOCK) in
+    order, a warp adds its threads' sums by shuffles (lane l takes lane
+    l + 16, 8, 4, 2, 1), and the block adds its warps' sums in order."""
+    ppt = v.shape[-1] // BLOCK
+    v = v.reshape(v.shape[:-1] + (ppt, BLOCK))
+    s = v[..., 0, :]
+    for i in range(1, ppt):
+        s = s + v[..., i, :]
+    s = s.reshape(s.shape[:-1] + (BLOCK // WARP, WARP))
+    off = WARP // 2
+    while off:
+        s = s[..., :off] + s[..., off:2 * off]
+        off //= 2
+    s = s[..., 0]
+    tot = s[..., 0]
+    for w in range(1, BLOCK // WARP):
+        tot = tot + s[..., w]
+    return tot
+
+
+def composite_backward_plain(cfg: RasterConfig, astart: torch.Tensor,
+                             astop: torch.Tensor, attr: torch.Tensor,
+                             d_color_t: torch.Tensor, r0: torch.Tensor,
+                             final_t: torch.Tensor, k_last: torch.Tensor,
+                             row_offset: int = 0,
+                             tiles: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version: entry k of every tile per step, from the frame's
+    largest k_last down to 0, all tiles and pixels at once, with the
+    kernel's arithmetic and summation order; every EXIT_CHECK steps it takes
+    in the tiles whose walk has begun. `tiles` restricts it to a subset;
+    the other tiles' columns stay zero. Returns [NUM_ATTR, P_al], zero
+    outside the walked entries."""
+    dev = attr.device
+    pal = attr.shape[1]
+    sel = (torch.arange(cfg.num_tiles, device=dev) if tiles is None
+           else tiles.to(device=dev, dtype=torch.int64))
+    start = astart.to(torch.int64)[sel]
+    num = astop.to(torch.int64)[sel] - start
+    px, py = _pixel_coords(cfg, dev, row_offset, sel)
+    nt = sel.shape[0]
+    # Pixels padded to the kernel's PPT * BLOCK slots; a padded pixel has
+    # k_last -1 and never contributes.
+    pad = -(-cfg.pix // BLOCK) * BLOCK - cfg.pix
+
+    def padded(x, value):
+        return torch.nn.functional.pad(x, (0, pad), value=value)
+
+    px, py = padded(px, 0.0), padded(py, 0.0)
+    T = padded(final_t[sel].to(torch.float32), 1.0)
+    R = padded(r0[sel].to(torch.float32), 0.0)
+    dc = [padded(d_color_t[sel][..., c].to(torch.float32), 0.0)
+          for c in range(3)]
+    kl = padded(k_last[sel].to(torch.int64), -1)
+    out = torch.zeros((NUM_ATTR, pal), dtype=torch.float32, device=dev)
+    if nt == 0 or pal == 0:
+        return out
+    kmax = torch.minimum(kl.max(1).values, num - 1)
+    top = int(kmax.max())
+    for k0 in range(top, -1, -EXIT_CHECK):
+        k_end = max(k0 - EXIT_CHECK, -1)
+        act = torch.nonzero(kmax >= k_end + 1).squeeze(1)
+        s_, km_, px_, py_, kl_ = start[act], kmax[act], px[act], py[act], kl[act]
+        T_, R_ = T[act], R[act]
+        dcr, dcg, dcb = (d[act] for d in dc)
+        for k in range(k0, k_end, -1):
+            col = torch.clamp(s_ + k, max=pal - 1)
+            a_ = attr[:NUM_ATTR, col]  # [9, act]
+            x, y, ca, cb, cc, op, cr, cg, cbl = (a_[r][:, None] for r in range(9))
+            dx = px_ - x
+            dy = py_ - y
+            power = ca * (dx * dx) + cc * (dy * dy) + cb * (dx * dy)
+            gauss = torch.exp(torch.clamp(power, max=0.0))
+            alpha_raw = op * gauss
+            alpha = torch.clamp(alpha_raw, max=ALPHA_CLAMP)
+            contrib = (power <= 0.0) & (alpha >= ALPHA_MIN) & (k <= kl_)
+            zero = torch.zeros_like(alpha)
+            a = torch.where(contrib, alpha, zero)
+            om = torch.clamp(1.0 - a, min=ONE_MINUS_MIN)
+            T_ = T_ / om
+            dcdot = dcr * cr + dcg * cg + dcb * cbl
+            w = a * T_
+            g_alpha = torch.where(contrib, T_ * dcdot - R_ / om, zero)
+            R_ = R_ + w * dcdot
+            clamp_ok = alpha_raw < ALPHA_CLAMP
+            g_op = torch.where(clamp_ok, g_alpha * gauss, zero)
+            g_pow = torch.where(clamp_ok, g_alpha * alpha, zero)
+            terms = torch.stack([
+                g_pow * ((2.0 * ca) * dx + cb * dy),
+                g_pow * (cb * dx + (2.0 * cc) * dy),
+                g_pow * (dx * dx),
+                g_pow * (dx * dy),
+                g_pow * (dy * dy),
+                g_op,
+                w * dcr,
+                w * dcg,
+                w * dcb,
+            ])  # [9, act, PPT * BLOCK]
+            g = _block_sum(terms)
+            g[:2] = -g[:2]
+            walked = k <= km_
+            out[:, (s_ + k)[walked]] = g[:, walked]
+        T[act], R[act] = T_, R_
+    return out
+
+
+def composite_backward(cfg: RasterConfig, astart: torch.Tensor,
+                       astop: torch.Tensor, attr: torch.Tensor,
+                       d_color_t: torch.Tensor, r0: torch.Tensor,
+                       final_t: torch.Tensor, k_last: torch.Tensor,
+                       row_offset: int = 0) -> torch.Tensor:
+    """Per-pair gradients of every tile. attr [ATTR_ROWS, P_al] f32 (the
+    forward's aligned table), astart/astop [T] int32, d_color_t [T, PIX, 3],
+    r0 and final_t [T, PIX] f32, k_last [T, PIX] int32 (the forward's).
+    Returns [NUM_ATTR, P_al] f32; columns outside [astart, astop) are not
+    written by the kernel."""
+    if attr.device.type == "cpu":
+        return composite_backward_plain(cfg, astart, astop, attr, d_color_t,
+                                        r0, final_t, k_last, row_offset)
+    dev = attr.device
+    nt, pix = cfg.num_tiles, cfg.pix
+    cuda_lib.require(attr, "attr", torch.float32, dev, 2)
+    cuda_lib.require(astart, "astart", torch.int32, dev, 1)
+    cuda_lib.require(astop, "astop", torch.int32, dev, 1)
+    cuda_lib.require(d_color_t, "d_color_t", torch.float32, dev, 3)
+    for name, t, dt in (("r0", r0, torch.float32),
+                        ("final_t", final_t, torch.float32),
+                        ("k_last", k_last, torch.int32)):
+        cuda_lib.require(t, name, dt, dev, 2)
+        if tuple(t.shape) != (nt, pix):
+            raise ValueError(f"composite_backward: {name} {tuple(t.shape)}, "
+                             f"expected ({nt}, {pix})")
+    if attr.shape[0] != ATTR_ROWS or astart.shape[0] != nt \
+            or astop.shape[0] != nt or tuple(d_color_t.shape) != (nt, pix, 3):
+        raise ValueError(f"composite_backward: attr {tuple(attr.shape)}, "
+                         f"{astart.shape[0]} starts, d_color_t "
+                         f"{tuple(d_color_t.shape)}; expected [{ATTR_ROWS}, P],"
+                         f" {nt} and ({nt}, {pix}, 3)")
+    if pix > MAX_TILE_PIX:
+        raise ValueError(f"composite_backward: {pix}-pixel tiles; the kernel "
+                         f"takes at most {MAX_TILE_PIX}")
+    lib = cuda_lib.lib()
+    pal = attr.shape[1]
+    if nt and int(torch.max(astop)) > pal:
+        raise ValueError(f"composite_backward: segments end past column {pal}")
+    out = torch.empty((NUM_ATTR, pal), dtype=torch.float32, device=dev)
+    if nt == 0:
+        return out
+    code = lib.tpugs_composite_bwd(
+        dev.index, attr.data_ptr(), pal, astart.data_ptr(), astop.data_ptr(),
+        nt, cfg.ntx, cfg.tile_w, cfg.tile_h, row_offset, d_color_t.data_ptr(),
+        r0.data_ptr(), final_t.data_ptr(), k_last.data_ptr(), out.data_ptr(),
+        cuda_lib.stream_ptr(dev))
+    composite_backward.launches += 1
+    cuda_lib.check("tpugs_composite_bwd", code)
+    return out
+
+
+composite_backward.launches = 0

@@ -22,6 +22,8 @@ import torch
 from tpugs_torch import cuda_lib
 
 ATTR_ROWS = 16  # x y ca cb cc opac r g b gid valid (pad)
+NUM_ATTR = 9  # compositor attributes x .. b, and gradients per pair
+GID_ROW = 9
 CHUNK = 512  # the reference's DMA chunk, kept for p_aligned_chunked
 LANE_ALIGN = 128  # aligned segment start granularity
 VALID_ROW = 10

@@ -65,7 +65,10 @@ def project_gaussians(means, quats, log_scales, opacity_logits, sh, alive,
     dirs = means - cam_center
     dirs = dirs / torch.sqrt(torch.sum(dirs * dirs, dim=-1, keepdim=True) + 1e-12)
     dirs = dirs.detach()
-    rgb = torch.clamp(sh_lib.eval_sh(sh_degree, sh, dirs), min=0.0)
+    # maximum, not clamp: at an exact 0 it passes half the gradient, as the
+    # reference's jnp.maximum does.
+    rgb = sh_lib.eval_sh(sh_degree, sh, dirs)
+    rgb = torch.maximum(rgb, torch.zeros_like(rgb))
 
     return ProjectionOutput(means2d=means2d, depths=tz, conic=conic,
                             radii=radii, rgb=rgb, opac=opac, visible=visible)

@@ -1,9 +1,11 @@
 """Top-level render(): projection -> binning -> compositing, as in
-tpugs/ops/render.py on its kernel branch, forward only.
+tpugs/ops/render.py on its kernel branch.
 
 On a CUDA tensor every stage with a kernel launches it (expand, align-copy,
-forward compositor); on a CPU tensor the same stages run their plain
-PyTorch versions.
+forward compositor; in the backward the backward compositor and the sorted
+segment reduction); on a CPU tensor the same stages run their plain
+PyTorch versions. Projection, SH and the depth presort's permutation run
+under autograd; binning carries no gradient.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import dataclasses
 import torch
 
 from tpugs_torch.ops import binning as B
-from tpugs_torch.ops.composite import composite_tiles_forward
+from tpugs_torch.ops.composite import CompositeSegred, composite_tiles_forward
 from tpugs_torch.ops.projection import project_gaussians
 from tpugs_torch.ops.rasterize_tiled import RasterConfig, tiles_to_image
 
@@ -37,9 +39,26 @@ class RenderOutput:
     hit_overflow: torch.Tensor  # [] bool: a tile exceeded max_hits_per_tile
 
 
+class _NoBackward(torch.autograd.Function):
+    """Identity on the outputs of render(need_grads=False) whose backward
+    raises: that render keeps no autograd graph and runs no backward."""
+
+    @staticmethod
+    def forward(ctx, color, final_t, *params):
+        return color.clone(), final_t.clone()
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "backward through render(need_grads=False): the reference's "
+            "gradient of that variant (composite_tiles_pallas, the "
+            "entry-major backward kernel plus a scatter-add, ROADMAP A11/B6) "
+            "is not yet ported; render with need_grads=True")
+
+
 def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
            intrinsics, cfg: RasterConfig, sh_degree: int, background,
-           scale_modifier: float = 1.0, presort="auto",
+           scale_modifier: float = 1.0, means2d_probe=None, presort="auto",
            need_grads: bool = True) -> RenderOutput:
     """Render one view. All tensors on one device; background [3].
 
@@ -52,15 +71,12 @@ def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
       "fastest"      "exact" when N <= 2^18, else "qkey" (the viewer's).
     All but "qkey" render bit-identical images.
 
-    need_grads: gradients through the compositor come with the training
-    slice; until then True raises NotImplementedError, and with False the
-    outputs carry no autograd graph."""
-    if need_grads:
-        raise NotImplementedError(
-            "render(need_grads=True): gradients through the compositor come "
-            "with the training slice (backward kernel + segment reduction); "
-            "pass need_grads=False"
-        )
+    means2d_probe: a zero [N, 2] tensor added to the screen positions; its
+    gradient is dL/d(screen xy), which densification reads.
+
+    need_grads: True (the default) differentiates through the compositor
+    with the backward kernel and the sorted segment reduction. False keeps
+    no autograd graph; a backward through its outputs raises."""
     n = means.shape[0]
     if presort == "auto":
         presort = "exact" if n <= PRESORT_MAX_N else False
@@ -73,29 +89,52 @@ def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
     quant_key_bits = 0
     if presort == "qkey":
         presort, quant_key_bits = False, QKEY_BITS
-    with torch.no_grad():
+    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
         proj = project_gaussians(
             means, quats, log_scales, opacity_logits, sh, alive, viewmat,
             intrinsics, cfg.img_w, cfg.img_h, sh_degree, scale_modifier,
         )
-        proj_b = B.presort_by_depth(proj)[1] if presort else proj
-        binning = B.bin_gaussians_expand_kernel(
-            proj_b, cfg.img_w, cfg.img_h, cfg.tile_w, cfg.tile_h,
-            cfg.pair_capacity, presorted=bool(presort),
-            quant_key_bits=quant_key_bits,
-        )
-        binning, max_tile_hits = B.clamp_tile_segments(
-            binning, cfg.max_hits_per_tile)
+        if presort:
+            # The probe rides inside the permuted table, so its gradient
+            # comes back to the original order through the gather.
+            proj_b = proj
+            if means2d_probe is not None:
+                proj_b = dataclasses.replace(
+                    proj, means2d=proj.means2d + means2d_probe)
+            proj_b = B.presort_by_depth(proj_b)[1]
+            means2d = proj_b.means2d
+        else:
+            proj_b = proj
+            means2d = proj.means2d
+            if means2d_probe is not None:
+                means2d = means2d + means2d_probe
+        with torch.no_grad():
+            binning = B.bin_gaussians_expand_kernel(
+                proj_b, cfg.img_w, cfg.img_h, cfg.tile_w, cfg.tile_h,
+                cfg.pair_capacity, presorted=bool(presort),
+                quant_key_bits=quant_key_bits,
+            )
+            binning, max_tile_hits = B.clamp_tile_segments(
+                binning, cfg.max_hits_per_tile)
         bg = torch.as_tensor(background, dtype=torch.float32,
                              device=means.device)
-        color_t, t_t, nc_t = composite_tiles_forward(
+        composite = (CompositeSegred.apply if need_grads
+                     else composite_tiles_forward)
+        color_t, t_t, nc_t = composite(
             cfg, binning.tile_start, binning.tile_stop, binning.pair_gauss,
-            proj_b.means2d, proj_b.conic, proj_b.rgb, proj_b.opac, bg,
+            means2d, proj_b.conic, proj_b.rgb, proj_b.opac, bg,
         )
     h, w = cfg.img_h, cfg.img_w
+    color = tiles_to_image(cfg, color_t)[:h, :w]
+    final_t = tiles_to_image(cfg, t_t)[:h, :w]
+    inputs = (means, quats, log_scales, opacity_logits, sh, means2d_probe, bg)
+    if not need_grads and torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
+        color, final_t = _NoBackward.apply(
+            color, final_t, *[x for x in inputs if isinstance(x, torch.Tensor)])
     return RenderOutput(
-        color=tiles_to_image(cfg, color_t)[:h, :w],
-        final_T=tiles_to_image(cfg, t_t)[:h, :w],
+        color=color,
+        final_T=final_t,
         n_contrib=tiles_to_image(cfg, nc_t)[:h, :w],
         radii=proj.radii,
         means2d=proj.means2d,

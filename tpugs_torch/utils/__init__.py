@@ -1,1 +1,1 @@
-"""Utilities: synthetic scenes."""
+"""Utilities: synthetic scenes, GT datasets, device-memory budgeting."""
