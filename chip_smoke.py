@@ -9,8 +9,9 @@ a nonzero exit:
   1. build: the one kernel library, one nvcc call
      (tpugs_torch/cuda_lib);
   2. kernels against their plain PyTorch versions on a 20k-gaussian scene
-     at 256x192, tiles of 16 and 32: expand and align-copy bit-identical,
-     the forward compositor within the stated tolerances;
+     at 256x192, tiles of 16 and 32: expand (also in carry mode) and
+     align-copy bit-identical, the forward compositor within the stated
+     tolerances;
   2b. the same scene rendered with gradients under a seeded L1 + SSIM loss:
      the backward compositor and the sorted segment sum bit-identical to
      their plain versions on the inputs the backward gave them, and the
@@ -23,19 +24,34 @@ a nonzero exit:
   4. the port's train step (tpugs_torch.train.trainer.make_train_step) at
      the garden shape (1M gaussians, 1297x840, SH 3, tiles of 32): render
      with gradients, L1 + SSIM against a seeded target, backward, Adam; 2
-     warm-up and 10 timed steps, each through all five kernels, no
-     overflow, finite loss and gradients; then all five kernels held
-     against their plain versions on step 0's inputs and timed alone there
-     beside their bounds (these rows make the kernels line), and the gid
-     sort timed;
+     warm-up and 10 timed steps, each through the five kernels of the
+     sorted path, no overflow, finite loss and gradients; then those
+     kernels held against their plain versions on step 0's inputs and
+     timed alone there beside their bounds, and the gid sort timed;
+  4b. one garden frame's gradients three ways: the sorted backward, the
+     classic branch (SORTED_SEGRED_MIN raised: the entry-major backward
+     compositor K4b and the interval segment sum K6) and the scatter-add
+     gradient of render(need_grads=False) (K4b); classic and scatter held
+     against sorted (rtol 1e-3 + 1e-4 max|g| on >= 99.9% of elements), K4b
+     against K4 transposed (bit-identical), two scatter runs compared;
+  4c. render(carry_attrs=True) at the render CLI's frame 0 and at the train
+     frame: images equal to the gathered path's, the expand kernel's carry
+     mode (K1b) bit-identical to its plain version, both frames timed both
+     ways;
+  4d. the train step at N = 2^24 (the garden frame's 1M gaussians and
+     2^24 - 1M more behind the camera): the classic branch, K4b and K6 once
+     per step, K4 and K5 never; 2 warm-up and 5 timed steps, peak memory;
+     K4b and K6 held against their plain versions on step 0's inputs
+     (bit-identical) and timed there, K6 beside index_add_;
   5. the train CLI (tpugs_torch.apps.train.main, --no-densify) for 20 steps
      on a 4-view 1297x840 GT dataset of a 1M-gaussian model with 1M sparse
-     points; finite losses, no overflow left, every step through all five
-     kernels, and its last checkpoint loads.
-Prints a {"kernels": [...]} line for the main path, the train step, with
-each kernel's launches on every path driven, then the nvidia-smi line and,
-only when every phase passed, {"ok": true, "device": {...}} as the last
-line.
+     points; finite losses, no overflow left, every step through the sorted
+     path's five kernels, and its last checkpoint loads.
+Prints a {"kernels": [...]} line with the eight kernels, each with its
+launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
+2^24 train step; K1b: the carried train frame) and on every path driven,
+then the nvidia-smi line and, only when every phase passed,
+{"ok": true, "device": {...}} as the last line.
 """
 from __future__ import annotations
 
@@ -73,6 +89,10 @@ TRAIN_PAIR_CAPACITY = 2_453_504
 TRAIN_MAX_HITS = 8192
 TRAIN_WARMUP, TRAIN_STEPS = 2, 10
 TRAIN_CLI_VIEWS, TRAIN_CLI_STEPS = 4, 20
+# The large-scene train step: the garden shape at 2^24 gaussians, the
+# first N that takes the classic backward branch.
+LARGE_N = 1 << 24
+LARGE_WARMUP, LARGE_STEPS = 2, 5
 
 _T0 = time.perf_counter()
 
@@ -120,47 +140,107 @@ def check(cond: bool, what: str):
         raise AssertionError(what)
 
 
-def kernel_wrappers() -> dict:
-    """name -> the kernel wrapper whose `launches` counts its launches."""
-    from tpugs_torch.ops import composite_t, expand, pack, segreduce
+# name -> (module under tpugs_torch.ops, wrapper, its launch counter,
+# source, the TPU kernel it replaces): one row per kernel of the table in
+# PERF.md; a wrapper with two modes counts each mode on its own counter.
+KERNELS = {
+    "expand": ("expand", "expand_pairs", "launches",
+               "tpugs_torch/csrc/expand.cu", "tpugs/ops/pallas/expand.py:82"),
+    "expand_carry": ("expand", "expand_pairs", "launches_carry",
+                     "tpugs_torch/csrc/expand.cu",
+                     "tpugs/ops/pallas/expand.py:82"),
+    "align_copy": ("pack", "align_copy", "launches",
+                   "tpugs_torch/csrc/align_copy.cu",
+                   "tpugs/ops/pallas/pack.py:100"),
+    "composite_fwd": ("composite_t", "composite_forward", "launches",
+                      "tpugs_torch/csrc/composite_fwd.cu",
+                      "tpugs/ops/pallas/composite_t.py:180"),
+    "composite_bwd": ("composite_t", "composite_backward", "launches",
+                      "tpugs_torch/csrc/composite_bwd.cu",
+                      "tpugs/ops/pallas/composite_t.py:343"),
+    "composite_bwd_entry": ("composite_t", "composite_backward",
+                            "launches_entry_major",
+                            "tpugs_torch/csrc/composite_bwd.cu",
+                            "tpugs/ops/pallas/composite_t.py:343"),
+    "segreduce": ("segreduce", "segment_sum_sorted", "launches",
+                  "tpugs_torch/csrc/segreduce.cu",
+                  "tpugs/ops/pallas/segreduce.py:200"),
+    "segreduce_interval": ("segreduce", "segment_reduce", "launches",
+                           "tpugs_torch/csrc/segreduce.cu",
+                           "tpugs/ops/pallas/segreduce.py:54"),
+}
+# The path each kernel's `launches` in the kernels line is read from: the
+# main path of the slice that ported it.
+MAIN_PATH = {"expand": "train_step", "align_copy": "train_step",
+             "composite_fwd": "train_step", "composite_bwd": "train_step",
+             "segreduce": "train_step",
+             "composite_bwd_entry": "large_train_step",
+             "segreduce_interval": "large_train_step",
+             "expand_carry": "carry_train_frame"}
 
-    return {"expand": expand.expand_pairs, "align_copy": pack.align_copy,
-            "composite_fwd": composite_t.composite_forward,
-            "composite_bwd": composite_t.composite_backward,
-            "segreduce": segreduce.segment_sum_sorted}
+
+def _counter(name: str):
+    """(wrapper, counter attribute) of a kernel."""
+    import importlib
+
+    mod, fn, counter = KERNELS[name][:3]
+    return getattr(importlib.import_module(f"tpugs_torch.ops.{mod}"), fn), counter
 
 
 def reset_launches():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for name in KERNELS:
+        setattr(*_counter(name), 0)
 
 
 def read_launches() -> dict:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(*_counter(name)) for name in KERNELS}
 
 
 @contextlib.contextmanager
-def capturing(module, name: str):
-    """Record the arguments of the first call of module.name while the
-    block runs. A wrapper counts its launches on the module attribute, so
-    the count moves to the recorder and back."""
+def capturing(module, name: str, when=lambda args, kw: True):
+    """Record the positional arguments of the first call of module.name for
+    which when(args, kwargs) holds, while the block runs. A wrapper counts
+    its launches on the module attribute, so the counts move to the
+    recorder and back."""
     orig = getattr(module, name)
     calls = []
 
-    def recorder(*args):
-        if not calls:
+    def recorder(*args, **kw):
+        if not calls and when(args, kw):
             calls.append(args)
-        return orig(*args)
+        return orig(*args, **kw)
 
-    if hasattr(orig, "launches"):
-        recorder.launches = orig.launches
+    counters = {k: v for k, v in vars(orig).items() if k.startswith("launches")}
+    vars(recorder).update(counters)
     setattr(module, name, recorder)
     try:
         yield calls
     finally:
         setattr(module, name, orig)
-        if hasattr(orig, "launches"):
-            orig.launches = recorder.launches
+        for k in counters:
+            setattr(orig, k, getattr(recorder, k))
+
+
+SORTED_PATH = ("expand", "align_copy", "composite_fwd", "composite_bwd",
+               "segreduce")  # a default train step's kernels
+CLASSIC_PATH = ("expand", "align_copy", "composite_fwd",
+                "composite_bwd_entry", "segreduce_interval")
+
+
+def check_launches(launches: dict, path, runs: int, what: str):
+    """Each kernel of `path` launched once per run, every other none."""
+    for name, count in launches.items():
+        want = runs if name in path else 0
+        check(count == want, f"{name} launched {count} times in {runs} "
+              f"{what} (expected {want})")
+
+
+def entry_major(args, kw) -> bool:
+    return kw.get("transposed_out") is False
+
+
+def carry_mode(args, kw) -> bool:
+    return len(args) > 7 and args[7] is not None
 
 
 def close_share(a, b) -> float:
@@ -255,6 +335,12 @@ def phase_kernels(dev, errs):
             p_out = expand.expand_pairs_plain(*args)
             for a, b in zip(k_out, p_out):
                 check(torch.equal(a, b), f"expand differs (tile {tile}, cap {cap})")
+            atab = pack.gaussian_attrs(pr.means2d, pr.conic, pr.rgb,
+                                       pr.opac).T.contiguous()
+            for a, b in zip(expand.expand_pairs(*args, atab),
+                            expand.expand_pairs_plain(*args, atab)):
+                check(torch.equal(a, b), f"expand in carry mode differs "
+                      f"(tile {tile}, cap {cap})")
             bk, bp = (B.sort_pairs(*o, ex.num_tiles, proj.depths.shape[0],
                                    ex.total, cap, presort, ex.qbits)
                       for o in (k_out, p_out))
@@ -264,7 +350,7 @@ def phase_kernels(dev, errs):
             if not qbits:  # the qkey sort is unstable: same-bin order free
                 check(torch.equal(bk.pair_gauss, bp.pair_gauss),
                       "sorted pair_gauss differs")
-        errs["expand"] = 0.0
+        errs["expand"] = errs["expand_carry"] = 0.0
         cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
                            pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
         b = B.bin_gaussians_expand_kernel(proj, w, h, tile, tile, cfg.pair_capacity)
@@ -281,8 +367,9 @@ def phase_kernels(dev, errs):
         err, m_nc, m_kl = compare_compositor(got, ref)
         errs["composite_fwd"] = max(errs.get("composite_fwd", 0.0), err)
         torch.cuda.synchronize()
-        print(f"tile {tile}: {ex.total} pairs, expand + sort bit-identical "
-              f"(also at capacity {full // 2}), align-copy bit-identical, "
+        print(f"tile {tile}: {ex.total} pairs, expand (also in carry mode) + "
+              f"sort bit-identical (also at capacity {full // 2}), align-copy "
+              f"bit-identical, "
               f"compositor max abs err {err:.3g}, n_contrib/k_last equal "
               f"{m_nc:.6f}/{m_kl:.6f}", flush=True)
 
@@ -402,10 +489,8 @@ def phase_cli(tmp, dev):
     steady = [float(s[3]) for s in stats[1:]]
     print(f"cli 1920x1080 1M SH3: {np.mean(steady):.3f} ms/frame after "
           f"warm-up; launches {launches}", flush=True)
-    for name in ("expand", "align_copy", "composite_fwd"):
-        check(launches[name] == CLI_FRAMES, f"{name} launched "
-              f"{launches[name]} times in {CLI_FRAMES} frames (expected 1 "
-              f"per frame)")
+    check_launches(launches, ("expand", "align_copy", "composite_fwd"),
+                   CLI_FRAMES, "frames")
     for i in range(CLI_FRAMES):
         img = np.asarray(Image.open(os.path.join(frames, f"frame_{i:04d}.png")))
         check(img.shape == (CLI_H, CLI_W, 3), f"frame {i} shape {img.shape}")
@@ -485,9 +570,7 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*a1), reps=3)
     k1_bytes = itab.numel() * 4 + ftab.numel() * 4 + p_out * 12
     k1_ops = p_out * 16  # index math, clamp, cull per slot
-    rows = [("expand", "tpugs_torch/csrc/expand.cu",
-             "tpugs/ops/pallas/expand.py:82", k_ms, pl_ms, k1_bytes, k1_ops,
-             None)]
+    rows = [("expand", k_ms, pl_ms, k1_bytes, k1_ops, None)]
 
     attr_c, tile_start, astart, counts, pal = a2
     attr = pack.align_copy(*a2)
@@ -507,9 +590,8 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     check(torch.equal(attr_z.index_select(1, src), attr), "index_select yardstick")
     lib_ms = cuda_ms(lambda: attr_z.index_select(1, src))
     entries = int(counts.sum())
-    rows.append(("align_copy", "tpugs_torch/csrc/align_copy.cu",
-                 "tpugs/ops/pallas/pack.py:100", k_ms, pl_ms,
-                 entries * 64 + pal * 64, 0, lib_ms))
+    rows.append(("align_copy", k_ms, pl_ms, entries * 64 + pal * 64, 0,
+                 lib_ms))
 
     cfg = a3[0]
     got = composite_t.composite_forward(*a3)
@@ -540,9 +622,7 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     # and 9 more per contribution.
     k3_ops = 17 * pairs_eval + 9 * int((n_contrib * inside).sum())
     k3_bytes = entries * 36 + cfg.num_tiles * cfg.pix * 24
-    rows.append(("composite_fwd", "tpugs_torch/csrc/composite_fwd.cu",
-                 "tpugs/ops/pallas/composite_t.py:180", k_ms, pl_ms, k3_bytes,
-                 k3_ops, None))
+    rows.append(("composite_fwd", k_ms, pl_ms, k3_bytes, k3_ops, None))
     print(f"{where}: {p_out} expand slots, {entries} composited entries, "
           f"{pal} aligned columns; expand and align-copy bit-identical to "
           f"their plain versions; compositor max abs err {err:.3g} "
@@ -617,9 +697,7 @@ def phase_train_step(dev, errs):
                 pairs0, hits0 = int(stats.num_pairs), int(stats.max_tile_hits)
     launches = read_launches()
     steps = TRAIN_WARMUP + TRAIN_STEPS
-    for name, count in launches.items():
-        check(count == steps, f"{name} launched {count} times in {steps} "
-              f"train steps (expected 1 per step)")
+    check_launches(launches, SORTED_PATH, steps, "train steps")
     step_ms = float(np.mean(ms[TRAIN_WARMUP:]))
     print(f"train step {w}x{h} 1M SH3: {step_ms:.3f} ms/step "
           f"(steps {', '.join(f'{m:.1f}' for m in ms)} ms), "
@@ -673,9 +751,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     # selects not counted), as csrc/composite_bwd.cu counts them.
     k4_ops = 53 * walked
     k4_bytes = 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24
-    rows = [("composite_bwd", "tpugs_torch/csrc/composite_bwd.cu",
-             "tpugs/ops/pallas/composite_t.py:343", k_ms, pl_ms, k4_bytes,
-             k4_ops, None)]
+    rows = [("composite_bwd", k_ms, pl_ms, k4_bytes, k4_ops, None)]
     print(f"backward compositor on the train frame: {entries} entries, "
           f"{walked} in-image (pixel, entry) pairs to the last contributor; "
           f"bit-identical to its plain version (also on 8 tiles incl. the "
@@ -697,14 +773,338 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
           f"index_add_ yardstick differs from the segment sum by {lib_err}")
     valid_slots = int(a5[1][-1])
     k5_bytes = 10 * valid_slots * 4 + pack.NUM_ATTR * n_red * 4
-    rows.append(("segreduce", "tpugs_torch/csrc/segreduce.cu",
-                 "tpugs/ops/pallas/segreduce.py:200", k_ms, pl_ms, k5_bytes,
+    rows.append(("segreduce", k_ms, pl_ms, k5_bytes,
                  valid_slots * pack.NUM_ATTR, lib_ms))
     print(f"segment sum: {valid_slots} valid slots of {key.shape[0]} into "
           f"{n_red} gaussians, bit-identical to its plain version; gid sort "
           f"(torch.sort + column gather) {sort_ms:.4f} ms; index_add_ "
           f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g})", flush=True)
     return rows
+
+
+def garden_params(dev):
+    from tpugs_torch.utils.synthetic import synthetic_params
+
+    return synthetic_params(TRAIN_N, seed=0, device=dev,
+                            scale_range=(0.002, 0.015))
+
+
+def frame_grads(dev, params, **render_kw):
+    """One garden-shape frame's render() gradients of every parameter under
+    the train step's loss against a seeded target, and the launches of that
+    run alone."""
+    import torch
+
+    from tpugs_torch.ops.render import RasterConfig, render
+    from tpugs_torch.train.loss import combined_loss
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    w, h = TRAIN_W, TRAIN_H
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=32, tile_w=32,
+                       pair_capacity=TRAIN_PAIR_CAPACITY,
+                       max_hits_per_tile=TRAIN_MAX_HITS)
+    target = torch.rand((h, w, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    tp = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    n = tp["means"].shape[0]
+    torch.cuda.synchronize()
+    reset_launches()
+    out = render(*[tp[k] for k in NAMES],
+                 torch.ones(n, dtype=torch.bool, device=dev),
+                 torch.eye(4, device=dev),
+                 torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev),
+                 cfg, 3, torch.zeros(3, device=dev), **render_kw)
+    grads = torch.autograd.grad(combined_loss(out.color, target),
+                                [tp[k] for k in NAMES])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(not bool(out.pair_overflow) and not bool(out.hit_overflow),
+          "garden frame overflowed")
+    for name, g in zip(NAMES, grads):
+        check(bool(torch.isfinite(g).all()), f"d {name} not finite")
+    return grads, launches
+
+
+def compare_grads(got, ref, what: str) -> float:
+    """The worst parameter group's share of elements within
+    GRAD_RTOL |ref| + GRAD_ATOL_REL max|ref|; raises below MIN_GRAD_MATCH."""
+    shares = {name: close_share(a, b) for name, a, b in zip(NAMES, got, ref)}
+    worst = min(shares.values())
+    check(worst >= MIN_GRAD_MATCH, f"{what}: gradients within tolerance of "
+          f"the sorted path's on only {shares}")
+    return worst
+
+
+def phase_garden_grad_paths(dev, errs):
+    """At train-garden-1M: the default sorted backward, the classic branch
+    (SORTED_SEGRED_MIN raised: K4b and K6) and the scatter-add gradient of
+    render(need_grads=False) (K4b), one frame each; the classic and scatter
+    gradients held against the sorted ones, K4b against K4 transposed on
+    the sorted run's inputs (bit-identical), the scatter run twice. Returns
+    the launches of the classic and scatter runs."""
+    import torch
+
+    from tpugs_torch.ops import composite, composite_t, pack
+
+    params = garden_params(dev)
+    with capturing(composite_t, "composite_backward") as k4:
+        sorted_g, sorted_l = frame_grads(dev, params)
+    check_launches(sorted_l, SORTED_PATH, 1, "sorted frames")
+    composite.SORTED_SEGRED_MIN = 1 << 62
+    try:
+        classic_g, classic_l = frame_grads(dev, params)
+    finally:
+        composite.SORTED_SEGRED_MIN = 0
+    check_launches(classic_l, CLASSIC_PATH, 1, "classic frames")
+    w_classic = compare_grads(classic_g, sorted_g, "classic branch")
+    scatter_g, scatter_l = frame_grads(dev, params, need_grads=False)
+    check_launches(scatter_l, ("expand", "align_copy", "composite_fwd",
+                               "composite_bwd_entry"), 1, "scatter frames")
+    w_scatter = compare_grads(scatter_g, sorted_g, "scatter gradient")
+    again, _ = frame_grads(dev, params, need_grads=False)
+    same = all(torch.equal(a, b) for a, b in zip(scatter_g, again))
+    with torch.no_grad():
+        args = k4[0]
+        rows = composite_t.composite_backward(*args, transposed_out=False)
+        cols = composite_t.composite_backward(*args)
+        valid = args[3][pack.VALID_ROW] > 0
+        err = float((rows[valid] - cols.T[valid]).abs().max())
+    check(err == 0.0, f"K4b differs from K4 transposed by {err}")
+    errs["composite_bwd_entry"] = max(errs.get("composite_bwd_entry", 0.0), err)
+    print(f"garden grad paths: classic (K4b + K6) and scatter (K4b + "
+          f"index_add_) gradients within tolerance of the sorted path's on "
+          f">= {w_classic:.6f} / {w_scatter:.6f} of elements (worst group); "
+          f"K4b bit-identical to K4 transposed; two scatter runs "
+          f"{'bit-identical' if same else 'differ (index_add_ atomics)'}",
+          flush=True)
+    return classic_l, scatter_l
+
+
+def expand_carry_row(dev, args, errs, where: str):
+    """K1b on one frame's captured inputs: held against its plain version
+    (bit-identical) and timed beside it; returns its kernel row."""
+    import torch
+
+    from tpugs_torch.ops import expand
+
+    got = expand.expand_pairs(*args)
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, expand.expand_pairs_plain(*args))),
+          f"K1b differs from its plain version on the {where}")
+    errs["expand_carry"] = 0.0
+    itab, ftab, p_out = args[:3]
+    atab = args[7]
+    k_ms = cuda_ms(lambda: expand.expand_pairs(*args))
+    pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*args), reps=3)
+    nbytes = (itab.numel() + ftab.numel() + atab.numel()) * 4 + p_out * 12 \
+        + p_out * 36
+    return ("expand_carry", k_ms, pl_ms, nbytes, p_out * 16, None)
+
+
+def phase_carry(dev, cli_params, errs):
+    """render(carry_attrs=True) against carry_attrs=False at the render CLI's
+    frame 0 (1920x1080, presort "fastest") and at the train frame (garden,
+    presort "auto"): images equal, K1b against its plain version, the frame
+    timed both ways. Returns K1b's row (train frame) and the launches of
+    the carried train frame."""
+    import torch
+
+    from tpugs_torch.core.gaussians import params_from_numpy
+    from tpugs_torch.ops import expand
+    from tpugs_torch.ops.render import RasterConfig, render
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+    from tpugs_torch.viewer.camera import orbit_trajectory
+
+    cam = orbit_trajectory(cli_params["means"], CLI_FRAMES, CLI_W, CLI_H)[0]
+    frames = {
+        "render frame": (
+            params_from_numpy(cli_params, dev),
+            torch.as_tensor(cam.world_to_camera(), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(cam.intrinsics_array(), device=dev),
+            RasterConfig(img_h=CLI_H, img_w=CLI_W, tile_h=32, tile_w=32,
+                         pair_capacity=CLI_PAIR_CAPACITY,
+                         max_hits_per_tile=CLI_MAX_HITS), "fastest"),
+        "train frame": (
+            garden_params(dev), torch.eye(4, device=dev),
+            torch.from_numpy(synthetic_intrinsics_numpy(TRAIN_W, TRAIN_H)).to(dev),
+            RasterConfig(img_h=TRAIN_H, img_w=TRAIN_W, tile_h=32, tile_w=32,
+                         pair_capacity=TRAIN_PAIR_CAPACITY,
+                         max_hits_per_tile=TRAIN_MAX_HITS), "auto"),
+    }
+    row, launches = None, None
+    for where, (p, vm, intr, cfg, presort) in frames.items():
+        n = p["means"].shape[0]
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+
+        def frame(carry):
+            return render(*[p[k] for k in NAMES], alive, vm, intr, cfg, 3,
+                          torch.zeros(3, device=dev), presort=presort,
+                          need_grads=False, carry_attrs=carry)
+
+        with torch.no_grad():
+            base = frame(False)
+            torch.cuda.synchronize()
+            reset_launches()
+            with capturing(expand, "expand_pairs", carry_mode) as k1b:
+                out = frame(True)
+            torch.cuda.synchronize()
+            run_launches = read_launches()
+            check_launches(run_launches, ("expand_carry", "align_copy",
+                                          "composite_fwd"), 1,
+                           f"carried {where}s")
+            err = max(float((out.color - base.color).abs().max()),
+                      float((out.final_T - base.final_T).abs().max()))
+            check(err == 0.0, f"carry_attrs changes the {where} by {err}")
+            ms = {c: cuda_ms(lambda: frame(c), reps=5) for c in (False, True)}
+            r = expand_carry_row(dev, k1b[0], errs, where)
+        print(f"carry {where}: {int(out.num_pairs)} pairs, images equal to "
+              f"the gathered path's (max abs err 0), K1b bit-identical to its "
+              f"plain version; frame {ms[False]:.3f} ms gathered, "
+              f"{ms[True]:.3f} ms carried; K1b {r[1]:.4f} ms", flush=True)
+        if where == "train frame":
+            row, launches = r, run_launches
+    return [row], launches
+
+
+def large_scene_params(dev):
+    """train-garden-1M's 1M gaussians, then 2^24 - 1M more behind the
+    identity camera (tpugs_torch.utils.synthetic.pad_behind_camera)."""
+    from tpugs_torch.utils.synthetic import pad_behind_camera
+
+    return pad_behind_camera(garden_params(dev), LARGE_N)
+
+
+def phase_large_scene(dev, errs):
+    """The port's train step at N = 2^24 (the garden shape; the classic
+    branch, K4b and K6 once per step, K4 and K5 never): 2 warm-up and 5
+    timed steps, peak memory; K4b and K6 held against their plain versions
+    on step 0's inputs and timed there (their rows of the kernels line).
+    Returns (rows, launches, ms per step, peak GB)."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.ops import composite_t, segreduce
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_step)
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    w, h, n = TRAIN_W, TRAIN_H, LARGE_N
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=32, tile_w=32,
+                       pair_capacity=TRAIN_PAIR_CAPACITY,
+                       max_hits_per_tile=TRAIN_MAX_HITS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = large_scene_params(dev)
+    state = TrainState(params=params,
+                       alive=torch.ones(n, dtype=torch.bool, device=dev),
+                       adam=adam_init(params), adc=adc_init(n, dev),
+                       key=initial_key(0))
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    viewmat = torch.eye(4, device=dev)
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev)
+    target = torch.rand((h, w, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ms, losses = [], []
+    steps = LARGE_WARMUP + LARGE_STEPS
+    torch.cuda.synchronize()
+    reset_launches()
+    with capturing(composite_t, "composite_backward", entry_major) as k4b, \
+            capturing(segreduce, "segment_reduce") as k6:
+        for i in range(steps):
+            ev0.record()
+            state, stats = train_step(state, target, viewmat, intr,
+                                      torch.tensor(float(i)), 3)
+            ev1.record()
+            torch.cuda.synchronize()
+            ms.append(ev0.elapsed_time(ev1))
+            losses.append(float(stats.loss))
+            check(not bool(stats.pair_overflow) and not bool(stats.hit_overflow),
+                  f"2^24 step {i} overflowed")
+            check(np.isfinite(losses[-1]), f"2^24 step {i}: loss {losses[-1]}")
+            check(all(bool(torch.isfinite(m).all())
+                      for m in state.adam.m.values()),
+                  f"2^24 step {i}: gradients not finite")
+            if i == 0:
+                pairs0 = int(stats.num_pairs)
+    launches = read_launches()
+    check_launches(launches, CLASSIC_PATH, steps, "2^24 train steps")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = float(np.mean(ms[LARGE_WARMUP:]))
+    print(f"train step {w}x{h} N=2^24 SH3 (classic branch): {step_ms:.3f} "
+          f"ms/step (steps {', '.join(f'{m:.1f}' for m in ms)} ms); step 0: "
+          f"{pairs0} pairs; loss {losses[0]:.5f} -> {losses[-1]:.5f}; peak "
+          f"memory {peak_gb:.2f} GiB (max_memory_allocated); launches "
+          f"{launches}", flush=True)
+    del state, params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        rows = classic_kernel_rows(dev, k4b[0], k6[0], errs)
+    return rows, launches, step_ms, peak_gb
+
+
+def classic_kernel_rows(dev, a4b, a6, errs):
+    """K4b and K6 on the inputs a 2^24 train step gave them: each held
+    against its plain version (bit-identical) and timed beside it, K6 also
+    beside index_add_ of the same gaussian-major rows."""
+    import torch
+
+    from tpugs_torch.ops import composite_t, pack, segreduce
+
+    cfg, astart, astop, attr, k_last = a4b[0], a4b[1], a4b[2], a4b[3], a4b[7]
+    got = composite_t.composite_backward(*a4b, transposed_out=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = composite_t.composite_backward_plain(*a4b, transposed_out=False)
+    torch.cuda.synchronize()
+    pl_ms = (time.perf_counter() - t0) * 1e3
+    valid = attr[pack.VALID_ROW] > 0
+    check(bool(torch.isfinite(got[valid]).all()), "K4b output not finite")
+    err4 = float((got[valid] - ref[valid]).abs().max())
+    check(err4 == 0.0, f"K4b differs from its plain version by {err4}")
+    errs["composite_bwd_entry"] = max(errs.get("composite_bwd_entry", 0.0), err4)
+    k_ms = cuda_ms(lambda: composite_t.composite_backward(
+        *a4b, transposed_out=False))
+    entries = int((astop - astart).long().sum())
+    walked = int(((k_last.long() + 1) * in_image(cfg, dev)).sum())
+    rows = [("composite_bwd_entry", k_ms, pl_ms,
+             2 * entries * 36 + cfg.num_tiles * cfg.pix * 24, 53 * walked,
+             None)]
+
+    d_rows, red_start, red_count, exp_end, n = a6
+    got = segreduce.segment_reduce(*a6)
+    err6 = float((got - segreduce.segment_reduce_plain(
+        d_rows, red_start, red_count, n)).abs().max())
+    check(err6 == 0.0, f"K6 differs from its plain version by {err6}")
+    errs["segreduce_interval"] = err6
+    k_ms = cuda_ms(lambda: segreduce.segment_reduce(*a6))
+    pl_ms = cuda_ms(lambda: segreduce.segment_reduce_plain(
+        d_rows, red_start, red_count, n), reps=3)
+    # Library yardstick: index_add_ of the same rows by their gaussian.
+    gid = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  red_count.long())
+    lib_rows = d_rows[:exp_end]
+    acc = torch.zeros((n, pack.NUM_ATTR), device=dev)
+    lib_ms = cuda_ms(lambda: acc.index_add_(0, gid, lib_rows))
+    lib = torch.zeros_like(acc).index_add_(0, gid, lib_rows).T
+    lib_err = float((lib - got).abs().max())
+    check(lib_err <= 1e-4 * float(got.abs().max()),
+          f"index_add_ yardstick differs from K6 by {lib_err}")
+    slots = int(red_count.long().sum())
+    rows.append(("segreduce_interval", k_ms, pl_ms,
+                  slots * 36 + n * 8 + n * 36, slots * pack.NUM_ATTR, lib_ms))
+    print(f"classic kernels at 2^24: K4b on {entries} entries, {walked} "
+          f"in-image (pixel, entry) pairs, bit-identical to its plain version; "
+          f"K6 over {slots} slots of {exp_end} into {n} gaussians, "
+          f"bit-identical; index_add_ {lib_ms:.4f} ms (max abs diff "
+          f"{lib_err:.3g})", flush=True)
+    return rows
+
 
 
 def phase_train_cli(tmp, dev):
@@ -768,9 +1168,7 @@ def phase_train_cli(tmp, dev):
     check(f"[{TRAIN_CLI_STEPS}] OVERFLOW" not in text and len(last_log) == 1
           and "OVERFLOW" not in last_log[0],
           "overflow left after the grow policy")
-    for name, count in launches.items():
-        check(count == TRAIN_CLI_STEPS, f"{name} launched {count} times in "
-              f"{TRAIN_CLI_STEPS} CLI steps (expected 1 per step)")
+    check_launches(launches, SORTED_PATH, TRAIN_CLI_STEPS, "CLI steps")
     m = re.search(r"trained (\d+) iters in ([\d.]+)s \(([\d.]+) it/s\)", text)
     check(m is not None and int(m.group(1)) == TRAIN_CLI_STEPS,
           "no 'trained' line")
@@ -798,29 +1196,31 @@ def bound(nbytes: int, ops: int):
 
 
 def print_rows(rows, where: str):
-    for name, _, _, ms, plain_ms, nbytes, ops, lib_ms in rows:
+    for name, ms, plain_ms, nbytes, ops, lib_ms in rows:
         bound_ms, bound_by = bound(nbytes, ops)
         print(f"{where} {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}), plain {plain_ms:.2f} ms, library "
               f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
 
 
-def kernel_table(rows, errs, launches_by_path, main_path: str):
-    """The {"kernels": [...]} entries from the main path's rows: each
-    kernel's launches there (and on every path driven), times, bound and
-    library time."""
+def kernel_table(rows, errs, launches_by_path):
+    """The {"kernels": [...]} entries, one per row: each kernel's launches
+    on its own slice's main path (MAIN_PATH) and on every path driven, its
+    times, bound and library time."""
     table = []
-    for name, source, replaces, ms, plain_ms, nbytes, ops, lib_ms in rows:
+    for name, ms, plain_ms, nbytes, ops, lib_ms in rows:
         bound_ms, bound_by = bound(nbytes, ops)
         table.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": launches_by_path[main_path][name],
+            "name": name, "route": "cuda", "source": KERNELS[name][3],
+            "replaces": KERNELS[name][4],
+            "launches": launches_by_path[MAIN_PATH[name]][name],
             "launches_by_path": {path: counts[name] for path, counts
                                  in launches_by_path.items()},
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
         })
+    check(sorted(r["name"] for r in table) == sorted(KERNELS),
+          "the kernels line misses a kernel")
     return table
 
 
@@ -842,15 +1242,27 @@ def main() -> int:
             params, cli_launches, _ = phase_cli(tmp, dev)
         with Phase("timing", 480):
             print_rows(phase_timing(dev, params, errs), "render frame")
-        del params
         with Phase("train-step", 600):
             rows, step_launches, _ = phase_train_step(dev, errs)
             print_rows(rows, "train frame")
+        with Phase("garden-grad-paths", 300):
+            classic_launches, scatter_launches = phase_garden_grad_paths(
+                dev, errs)
+        with Phase("carry", 300):
+            carry_rows, carry_launches = phase_carry(dev, params, errs)
+            print_rows(carry_rows, "train frame")
+        del params
+        with Phase("large-scene", 600):
+            large_rows, large_launches, _, _ = phase_large_scene(dev, errs)
+            print_rows(large_rows, "2^24 train frame")
         with Phase("train-cli", 900):
             train_cli_launches = phase_train_cli(tmp, dev)
-    table = kernel_table(rows, errs, {
-        "train_step": step_launches, "train_cli": train_cli_launches,
-        "render_cli": cli_launches}, "train_step")
+    table = kernel_table(rows + large_rows + carry_rows, errs, {
+        "train_step": step_launches, "large_train_step": large_launches,
+        "carry_train_frame": carry_launches,
+        "classic_garden_frame": classic_launches,
+        "scatter_garden_frame": scatter_launches,
+        "train_cli": train_cli_launches, "render_cli": cli_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

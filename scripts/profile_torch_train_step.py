@@ -17,6 +17,13 @@ a seeded target, backward, Adam. After 3 warm-up steps it prints
     time;
 
 and writes the profiler's full table under --out. Needs CUDA.
+
+    python3 scripts/profile_torch_train_step.py --n-total 16777216
+
+profiles chip_smoke.py's train-garden-2^24 cell instead: the same 1M
+gaussians followed by gaussians behind the camera up to 2^24
+(tpugs_torch.utils.synthetic.pad_behind_camera), whose backward takes the
+classic branch.
 """
 from __future__ import annotations
 
@@ -71,6 +78,9 @@ def stage_marks(trainer_mod, marks: list):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/profile")
+    ap.add_argument("--n-total", type=int, default=N,
+                    help="gaussians in all: the 1M seen by the camera, the "
+                         "rest behind it")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -84,16 +94,21 @@ def main(argv=None) -> int:
     from tpugs_torch.optim.adam import adam_init
     from tpugs_torch.optim.densify_adc import adc_init
     from tpugs_torch.train import trainer as trainer_mod
-    from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
+    from tpugs_torch.utils.synthetic import (pad_behind_camera,
+                                             synthetic_intrinsics_numpy,
                                              synthetic_params)
 
     dev = torch.device("cuda", 0)
     cfg = RasterConfig(img_h=H, img_w=W, tile_h=32, tile_w=32,
                        pair_capacity=PAIR_CAPACITY, max_hits_per_tile=MAX_HITS)
     params = synthetic_params(N, seed=0, device=dev, scale_range=(0.002, 0.015))
+    n = args.n_total
+    if n > N:
+        params = pad_behind_camera(params, n)
+    torch.cuda.reset_peak_memory_stats()
     state = trainer_mod.TrainState(
-        params=params, alive=torch.ones(N, dtype=torch.bool, device=dev),
-        adam=adam_init(params), adc=adc_init(N, dev),
+        params=params, alive=torch.ones(n, dtype=torch.bool, device=dev),
+        adam=adam_init(params), adc=adc_init(n, dev),
         key=trainer_mod.initial_key(0))
     train_step = trainer_mod.make_train_step(
         trainer_mod.TrainConfig(densify_mode="none"), cfg)
@@ -125,9 +140,11 @@ def main(argv=None) -> int:
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit "
                    "--format=csv,noheader").read().strip()
     print(smi)
-    print("stage ms (mean of %d steps, synchronised): render forward %.3f, "
-          "loss %.3f, backward %.3f, adam %.3f, stats %.3f; sum %.3f"
-          % (SPLIT_STEPS, *stages, stages.sum()))
+    print("%d gaussians; stage ms (mean of %d steps, synchronised): render "
+          "forward %.3f, loss %.3f, backward %.3f, adam %.3f, stats %.3f; sum "
+          "%.3f; peak memory %.2f GiB"
+          % (n, SPLIT_STEPS, *stages, stages.sum(),
+             torch.cuda.max_memory_allocated() / 2**30))
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -161,7 +178,7 @@ def main(argv=None) -> int:
             print("  %8.3f  %6.1f  %s" % (dev_us(e) / 1e3 / PROFILE_STEPS,
                                           e.count / PROFILE_STEPS, e.key[:90]))
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "train_step_table.txt"), "w") as f:
+    with open(os.path.join(args.out, f"train_step_table_{n}.txt"), "w") as f:
         f.write(events.table(sort_by=dev_attr, row_limit=80))
     return 0
 

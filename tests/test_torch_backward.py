@@ -26,13 +26,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_parity import np_, random_projection, torch_projection
+from tests.torch_parity import (np_, random_projection, render_grads_both,
+                                torch_projection)
 from tpugs.ops import rasterize_tiled as JR
 from tpugs.ops.pallas.composite_t import composite_backward_pallas
 from tpugs.ops.pallas.segreduce import SENTINEL as JAX_SENTINEL
 from tpugs.ops.pallas.segreduce import segment_reduce_sorted_pallas
-from tpugs.ops.render import RasterConfig as JaxConfig
-from tpugs.ops.render import render as jax_render
 from tpugs_torch.core.gaussians import params_from_numpy
 from tpugs_torch.ops import binning as TB
 from tpugs_torch.ops import composite_t as TC
@@ -40,7 +39,6 @@ from tpugs_torch.ops import pack as TP
 from tpugs_torch.ops import rasterize_tiled as TR
 from tpugs_torch.ops import segreduce as TS
 from tpugs_torch.ops.composite import reduce_pair_grads
-from tpugs_torch.ops.render import RasterConfig, render
 from tpugs_torch.utils.synthetic import synthetic_params_numpy
 from tpugs_torch.viewer.camera import orbit_trajectory
 
@@ -222,44 +220,8 @@ def _model(w, h, seed, n=300):
     return p, cam.world_to_camera().astype(np.float32), cam.intrinsics_array()
 
 
-def _grads_both(p, alive, vm, intr, w, h, tile, presort, cap=CAP,
-                max_hits=512, seed=0):
-    n = p["means"].shape[0]
-    rng = np.random.default_rng(seed + 7)
-    c_col = rng.normal(size=(h, w, 3)).astype(np.float32)
-    c_t = rng.normal(size=(h, w)).astype(np.float32)
-    bg = np.float32([0.1, 0.2, 0.3])
-
-    tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, "cpu").items()}
-    probe = torch.zeros((n, 2), requires_grad=True)
-    tbg = torch.from_numpy(bg).requires_grad_(True)
-    out = render(*[tp[k] for k in NAMES], torch.from_numpy(alive),
-                 torch.from_numpy(vm), torch.from_numpy(intr),
-                 RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
-                              pair_capacity=cap, max_hits_per_tile=max_hits),
-                 3, tbg, means2d_probe=probe, presort=presort)
-    loss = ((out.color * torch.from_numpy(c_col)).sum()
-            + (out.final_T * torch.from_numpy(c_t)).sum())
-    gs = torch.autograd.grad(loss, [tp[k] for k in NAMES] + [probe, tbg])
-    got = dict(zip(NAMES + ("probe", "bg"), [np_(g) for g in gs]))
-
-    jcfg = JaxConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
-                     pair_capacity=cap, max_hits_per_tile=max_hits)
-
-    def jloss(params, probe, bgv):
-        o = jax_render(*[params[k] for k in NAMES], jnp.asarray(alive),
-                       jnp.asarray(vm), jnp.asarray(intr), jcfg, 3, bgv,
-                       means2d_probe=probe, compositor="pallas",
-                       presort=presort)
-        return jnp.sum(o.color * c_col) + jnp.sum(o.final_T * c_t), o
-
-    jp = {k: jnp.asarray(p[k]) for k in NAMES}
-    (_, jo), (jg, jprobe, jbg) = jax.value_and_grad(
-        jloss, argnums=(0, 1, 2), has_aux=True)(
-            jp, jnp.zeros((n, 2)), jnp.asarray(bg))
-    ref = {k: np.asarray(jg[k]) for k in NAMES}
-    ref["probe"], ref["bg"] = np.asarray(jprobe), np.asarray(jbg)
-    return out, jo, got, ref
+def _grads_both(*args, **kw):
+    return render_grads_both(*args, cap=kw.pop("cap", CAP), **kw)
 
 
 def _assert_grads_close(got, ref):

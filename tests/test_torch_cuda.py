@@ -171,3 +171,109 @@ def test_render_gradients_on_card_match_cpu(dev):
         scale = np.abs(b).max()
         close = np.abs(a - b) <= 1e-3 * np.abs(b) + 1e-4 * scale
         assert close.mean() >= 0.999, (name, close.mean())
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+def test_entry_major_backward_kernel_bit_identical(dev, tile):
+    """K4b: the entry-major layout against its plain version and against
+    the attribute-major kernel transposed, on the slots that hold a pair."""
+    cfg, astart, astop, attr = _aligned(dev, 192, 128, tile, 5)
+    _, final_t, _, k_last = composite_t.composite_forward(cfg, astart, astop, attr)
+    g = torch.Generator(device="cpu").manual_seed(tile + 1)
+    d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
+    r0 = torch.randn((cfg.num_tiles, cfg.pix), generator=g).to(dev) * final_t
+    args = (cfg, astart, astop, attr, d_color, r0, final_t, k_last)
+    got = composite_t.composite_backward(*args, transposed_out=False)
+    ref = composite_t.composite_backward_plain(*args, transposed_out=False)
+    valid = attr[pack.VALID_ROW] > 0
+    assert got.shape == (attr.shape[1], pack.NUM_ATTR)
+    assert torch.isfinite(got[valid]).all()
+    assert torch.equal(got[valid], ref[valid])
+    assert torch.equal(got[valid], composite_t.composite_backward(*args).T[valid])
+
+
+@pytest.mark.parametrize("n,span", [(20_000, 3), (300, 400), (64, 0)])
+def test_interval_sum_kernel_bit_identical(dev, n, span):
+    """K6 against its plain version: intervals with gaps, empty ones, and
+    (span 400) long ones."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    count = torch.poisson(torch.full((n,), float(span)), generator=g).int()
+    count[::5] = 0
+    gaps = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
+    start = (torch.cumsum(count + gaps, 0) - count).int()
+    end = int(start[-1] + count[-1]) if n else 0
+    rows = torch.randn((end + 7, pack.NUM_ATTR), generator=g)
+    args = (rows.to(dev), start.to(dev), count.to(dev), end, n)
+    got = segreduce.segment_reduce(*args)
+    assert torch.equal(got, segreduce.segment_reduce_plain(*args[:3], n))
+    ref = torch.zeros((pack.NUM_ATTR, n), dtype=torch.float64)
+    seg = torch.repeat_interleave(torch.arange(n), count.long())
+    slots = torch.cat([torch.arange(s, s + c) for s, c in
+                       zip(start.tolist(), count.tolist())] or [torch.zeros(0)])
+    ref.index_add_(1, seg, rows[slots.long()].T.double())
+    np.testing.assert_allclose(np_(got), ref.numpy(), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile,frac", [(16, 1.0), (32, 0.5)])
+def test_expand_carry_kernel_bit_identical(dev, tile, frac):
+    """K1b: the expand kernel in carry mode against its plain version, and
+    binning's carried attr_c against the gathered pack."""
+    proj = _proj(dev, 192, 128, 6)
+    total = TB.expand_inputs(proj, 192, 128, tile, tile, 1 << 24).total
+    ex = TB.expand_inputs(proj, 192, 128, tile, tile, int(total * frac))
+    atab = pack.gaussian_attrs(proj.means2d, proj.conic, proj.rgb,
+                               proj.opac).T.contiguous()
+    args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile, atab)
+    for a, b in zip(expand.expand_pairs(*args), expand.expand_pairs_plain(*args)):
+        assert torch.equal(a, b)
+    b = TB.bin_gaussians_expand_kernel(proj, 192, 128, tile, tile, ex.p_out,
+                                       carry_attrs=True)
+    packed = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
+                                     proj.rgb, proj.opac, b.pair_gauss.shape[0])
+    real = b.pair_tile < ex.num_tiles
+    assert torch.equal(b.attr_c[:, real], packed[:11, real])
+
+
+def _render_grads(d, p, cam, cfg, c, **kw):
+    tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, d).items()}
+    n = p["means"].shape[0]
+    out = render(*[tp[k] for k in NAMES], torch.ones(n, dtype=torch.bool, device=d),
+                 torch.as_tensor(cam.world_to_camera(), dtype=torch.float32, device=d),
+                 torch.as_tensor(cam.intrinsics_array(), device=d), cfg, 3,
+                 torch.zeros(3, device=d), **kw)
+    gs = torch.autograd.grad((out.color * c.to(d)).sum(), [tp[k] for k in NAMES])
+    return out, [np_(x) for x in gs]
+
+
+@pytest.mark.parametrize("path", ["classic", "scatter", "carry"])
+def test_render_paths_on_card_match_sorted(dev, monkeypatch, path):
+    """The classic branch (SORTED_SEGRED_MIN raised), the scatter-add
+    gradient (need_grads=False) and carry_attrs on the card against the
+    default sorted path on the card: the same function summed in another
+    order (carry: bit-identical)."""
+    from tpugs_torch.ops import composite
+
+    p = synthetic_params_numpy(3000, seed=7)
+    cam = orbit_trajectory(p["means"], 4, 160, 96)[3]
+    cfg = RasterConfig(img_h=96, img_w=160, tile_h=16, tile_w=16,
+                       pair_capacity=1 << 18, max_hits_per_tile=4096)
+    c = torch.randn((96, 160, 3), generator=torch.Generator().manual_seed(1))
+    _, base = _render_grads(dev, p, cam, cfg, c)
+    kw = {"scatter": {"need_grads": False}, "carry": {"carry_attrs": True}}
+    if path == "classic":
+        monkeypatch.setattr(composite, "SORTED_SEGRED_MIN", 1 << 62)
+    before = (composite_t.composite_backward.launches_entry_major,
+              segreduce.segment_reduce.launches, expand.expand_pairs.launches_carry)
+    _, other = _render_grads(dev, p, cam, cfg, c, **kw.get(path, {}))
+    after = (composite_t.composite_backward.launches_entry_major,
+             segreduce.segment_reduce.launches, expand.expand_pairs.launches_carry)
+    ran = [a - b for a, b in zip(after, before)]
+    assert ran == {"classic": [1, 1, 0], "scatter": [1, 0, 0],
+                   "carry": [0, 0, 1]}[path]
+    for name, a, b in zip(NAMES, other, base):
+        assert np.isfinite(a).all(), name
+        if path == "carry":
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        scale = np.abs(b).max()
+        close = np.abs(a - b) <= 1e-3 * np.abs(b) + 1e-4 * scale
+        assert close.mean() >= 0.999, (name, close.mean())

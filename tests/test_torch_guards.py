@@ -164,47 +164,69 @@ def _expand_args(device="cpu"):
 
 
 def _wrappers(device="cpu"):
-    """(wrapper, plain name, args) for each kernel wrapper."""
+    """(name, call, counter, (module, plain name)) for each kernel; call()
+    runs its wrapper, counter() reads the wrapper's count of its launches."""
     cfg = RasterConfig(img_h=48, img_w=64, tile_h=16, tile_w=16)
     z = lambda *s, dt=torch.float32: torch.zeros(*s, dtype=dt, device=device)
     i32 = torch.int32
+    ex = _expand_args(device)
+    bwd = (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128), z(12, 256, 3),
+           z(12, 256), z(12, 256), z(12, 256, dt=i32))
+    cb = composite_t.composite_backward
     return [
-        (expand.expand_pairs, (expand, "expand_pairs_plain"), _expand_args(device)),
-        (pack.align_copy, (pack, "align_copy_plain"),
-         (z(16, 256), z(12, dt=i32), z(12, dt=i32), z(12, dt=i32), 128)),
-        (composite_t.composite_forward, (composite_t, "composite_forward_plain"),
-         (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128))),
-        (composite_t.composite_backward, (composite_t, "composite_backward_plain"),
-         (cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128), z(12, 256, 3),
-          z(12, 256), z(12, 256), z(12, 256, dt=i32))),
-        (segreduce.segment_sum_sorted, (segreduce, "segment_sum_sorted_plain"),
-         (z(9, 64), z(5, dt=i32), 4)),
+        ("expand", lambda: expand.expand_pairs(*ex),
+         lambda: expand.expand_pairs.launches, (expand, "expand_pairs_plain")),
+        ("expand carry", lambda: expand.expand_pairs(*ex, z(9, ex[0].shape[1])),
+         lambda: expand.expand_pairs.launches_carry,
+         (expand, "expand_pairs_plain")),
+        ("align_copy", lambda: pack.align_copy(
+            z(16, 256), z(12, dt=i32), z(12, dt=i32), z(12, dt=i32), 128),
+         lambda: pack.align_copy.launches, (pack, "align_copy_plain")),
+        ("composite_fwd", lambda: composite_t.composite_forward(
+            cfg, z(12, dt=i32), z(12, dt=i32), z(16, 128)),
+         lambda: composite_t.composite_forward.launches,
+         (composite_t, "composite_forward_plain")),
+        ("composite_bwd", lambda: cb(*bwd), lambda: cb.launches,
+         (composite_t, "composite_backward_plain")),
+        ("composite_bwd entry-major", lambda: cb(*bwd, transposed_out=False),
+         lambda: cb.launches_entry_major,
+         (composite_t, "composite_backward_plain")),
+        ("segreduce_sorted", lambda: segreduce.segment_sum_sorted(
+            z(9, 64), z(5, dt=i32), 4),
+         lambda: segreduce.segment_sum_sorted.launches,
+         (segreduce, "segment_sum_sorted_plain")),
+        ("segreduce_interval", lambda: segreduce.segment_reduce(
+            z(64, 9), z(4, dt=i32), z(4, dt=i32), 64, 4),
+         lambda: segreduce.segment_reduce.launches,
+         (segreduce, "segment_reduce_plain")),
     ]
 
 
-@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("k", range(8))
 def test_cpu_tensor_reaches_the_plain_version(monkeypatch, k):
-    wrapper, (mod, plain), args = _wrappers()[k]
-    before = wrapper.launches
+    _, call, counter, (mod, plain) = _wrappers()[k]
+    before = counter()
     monkeypatch.setattr(mod, plain, lambda *a, **kw: "plain")
     monkeypatch.setattr(cuda_lib, "lib", lambda: pytest.fail("kernel launched"))
-    assert wrapper(*args) == "plain"
-    assert wrapper.launches == before
+    assert call() == "plain"
+    assert counter() == before
 
 
-@pytest.mark.parametrize("k", range(5))
+@pytest.mark.parametrize("k", range(8))
 def test_non_cpu_tensor_goes_to_the_kernel_and_errors_propagate(monkeypatch, k):
     """A tensor off the CPU never takes the plain version: the wrapper goes
     to the kernel library, and its failure reaches the caller."""
-    wrapper, (mod, plain), args = _wrappers("meta")[k]
+    _, call, counter, (mod, plain) = _wrappers("meta")[k]
     monkeypatch.setattr(mod, plain, lambda *a, **kw: pytest.fail("fell back"))
 
     def broken():
         raise RuntimeError("no kernel library")
 
     monkeypatch.setattr(cuda_lib, "lib", broken)
+    before = counter()
     with pytest.raises(RuntimeError, match="no kernel library"):
-        wrapper(*args)
+        call()
+    assert counter() == before
 
 
 def test_wrapper_rejects_wrong_inputs():
@@ -215,6 +237,14 @@ def test_wrapper_rejects_wrong_inputs():
         expand.expand_pairs(itab, ftab.t().contiguous().t(), *rest)
     with pytest.raises(ValueError, match="expected"):
         expand.expand_pairs(itab[:4].contiguous(), ftab, *rest)
+    with pytest.raises(ValueError, match="atab"):
+        expand.expand_pairs(itab, ftab, *rest, torch.zeros(9, 3, device="meta"))
+    rows = torch.zeros(64, 9, device="meta")
+    iv = torch.zeros(4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="expected"):
+        segreduce.segment_reduce(rows[:, :8].contiguous(), iv, iv, 64, 4)
+    with pytest.raises(ValueError, match="exp_end"):
+        segreduce.segment_reduce(rows, iv, iv, 65, 4)
 
 
 def test_launch_error_code_raises():
@@ -249,7 +279,8 @@ def test_build_command_and_key():
     assert set(cuda_lib.SIGNATURES) >= {"tpugs_expand", "tpugs_align_copy",
                                         "tpugs_composite_fwd",
                                         "tpugs_composite_bwd",
-                                        "tpugs_segreduce_sorted"}
+                                        "tpugs_segreduce_sorted",
+                                        "tpugs_segreduce_interval"}
 
 
 
@@ -302,22 +333,44 @@ def test_trainer_evaluate_not_yet_ported(tmp_path):
         tr.evaluate()
 
 
-def test_backward_through_forward_only_render_raises():
+def test_trainer_refuses_eval_every_before_any_step(tmp_path):
+    """eval_every > 0 reaches Trainer.evaluate, which is not ported: the
+    Trainer refuses it when it is made, so no step runs and nothing is
+    written (the setup of ROADMAP C1)."""
+    from tpugs_torch.train.trainer import TrainConfig, Trainer
+    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
+
+    root = str(tmp_path / "gt")
+    write_gt_dataset(root, make_gt_model(500, seed=0, device="cpu"),
+                     num_views=4, width=64, height=48, sparse_points=200)
+    out = tmp_path / "o"
+    cfg = TrainConfig(iterations=20, eval_every=10, log_every=5, save_every=0,
+                      densify_mode="none", tile_h=16, tile_w=16,
+                      output_dir=str(out))
+    with pytest.raises(NotImplementedError, match="eval_every=10.*A8c"):
+        Trainer(root, cfg, log_fn=lambda *_: pytest.fail("trained"),
+                device="cpu")
+    assert not out.exists()
+
+
+def test_forward_only_render_builds_no_graph():
+    """render(need_grads=False) under no_grad, or with inputs that need no
+    gradient (the render CLI's and the viewer's), builds no autograd graph.
+    Its gradient, where an input needs one, is held against tpugs' in
+    tests/test_torch_scatter.py."""
     from tpugs_torch.ops.render import render
     from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
                                              synthetic_params)
 
     p = {k: v.requires_grad_(True) for k, v in synthetic_params(30).items()}
     cfg = RasterConfig(img_h=24, img_w=32)
-    out = render(p["means"], p["quats"], p["log_scales"], p["opacity_logits"],
-                 p["sh"], torch.ones(30, dtype=torch.bool), torch.eye(4),
-                 torch.from_numpy(synthetic_intrinsics_numpy(32, 24)), cfg, 3,
-                 torch.zeros(3), need_grads=False)
-    with pytest.raises(NotImplementedError, match="composite_tiles_pallas"):
-        (out.color.sum() + out.final_T.sum()).backward()
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(32, 24))
+    alive = torch.ones(30, dtype=torch.bool)
+    names = ("means", "quats", "log_scales", "opacity_logits", "sh")
     with torch.no_grad():
-        out = render(p["means"], p["quats"], p["log_scales"],
-                     p["opacity_logits"], p["sh"], torch.ones(30, dtype=torch.bool),
-                     torch.eye(4), torch.from_numpy(synthetic_intrinsics_numpy(32, 24)),
-                     cfg, 3, torch.zeros(3), need_grads=False)
+        out = render(*[p[k] for k in names], alive, torch.eye(4), intr, cfg, 3,
+                     torch.zeros(3), need_grads=False)
     assert out.color.grad_fn is None
+    out = render(*[p[k].detach() for k in names], alive, torch.eye(4), intr,
+                 cfg, 3, torch.zeros(3), need_grads=False)
+    assert out.color.grad_fn is None and out.means2d.grad_fn is None

@@ -10,6 +10,7 @@ import torch
 from tpugs_torch.ops.projection import ProjectionOutput as TorchProjection
 
 PROJ_FIELDS = ("means2d", "depths", "conic", "radii", "rgb", "opac", "visible")
+NAMES = ("means", "quats", "log_scales", "opacity_logits", "sh")
 
 
 def np_(x) -> np.ndarray:
@@ -65,3 +66,56 @@ def assert_segments_equal(b_ref, b_new, num_tiles: int):
         np.testing.assert_array_equal(a, b, err_msg=f"tile {t}")
     assert int(b_ref.num_pairs) == int(b_new.num_pairs)
     assert bool(b_ref.overflow) == bool(b_new.overflow)
+
+
+def render_grads_both(p, alive, vm, intr, w, h, tile, presort, cap=8192,
+                      max_hits=512, seed=0, **render_kw):
+    """render()'s gradients in both packages under one seeded cotangent of
+    color and final_T, for every parameter, the screen-space probe and the
+    background. render_kw (need_grads, carry_attrs) go to both renders;
+    tpugs renders with compositor="pallas". Returns (port output, tpugs
+    output, port gradients, tpugs gradients), gradients as numpy dicts."""
+    import jax
+    import jax.numpy as jnp
+
+    from tpugs.ops.render import RasterConfig as JaxConfig
+    from tpugs.ops.render import render as jax_render
+    from tpugs_torch.core.gaussians import params_from_numpy
+    from tpugs_torch.ops.render import RasterConfig, render
+
+    n = p["means"].shape[0]
+    rng = np.random.default_rng(seed + 7)
+    c_col = rng.normal(size=(h, w, 3)).astype(np.float32)
+    c_t = rng.normal(size=(h, w)).astype(np.float32)
+    bg = np.float32([0.1, 0.2, 0.3])
+
+    tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, "cpu").items()}
+    probe = torch.zeros((n, 2), requires_grad=True)
+    tbg = torch.from_numpy(bg).requires_grad_(True)
+    out = render(*[tp[k] for k in NAMES], torch.from_numpy(alive),
+                 torch.from_numpy(vm), torch.from_numpy(intr),
+                 RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+                              pair_capacity=cap, max_hits_per_tile=max_hits),
+                 3, tbg, means2d_probe=probe, presort=presort, **render_kw)
+    loss = ((out.color * torch.from_numpy(c_col)).sum()
+            + (out.final_T * torch.from_numpy(c_t)).sum())
+    gs = torch.autograd.grad(loss, [tp[k] for k in NAMES] + [probe, tbg])
+    got = dict(zip(NAMES + ("probe", "bg"), [np_(g) for g in gs]))
+
+    jcfg = JaxConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+                     pair_capacity=cap, max_hits_per_tile=max_hits)
+
+    def jloss(params, probe, bgv):
+        o = jax_render(*[params[k] for k in NAMES], jnp.asarray(alive),
+                       jnp.asarray(vm), jnp.asarray(intr), jcfg, 3, bgv,
+                       means2d_probe=probe, compositor="pallas",
+                       presort=presort, **render_kw)
+        return jnp.sum(o.color * c_col) + jnp.sum(o.final_T * c_t), o
+
+    jp = {k: jnp.asarray(p[k]) for k in NAMES}
+    (_, jo), (jg, jprobe, jbg) = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+            jp, jnp.zeros((n, 2)), jnp.asarray(bg))
+    ref = {k: np.asarray(jg[k]) for k in NAMES}
+    ref["probe"], ref["bg"] = np.asarray(jprobe), np.asarray(jbg)
+    return out, jo, got, ref

@@ -3,7 +3,10 @@ tpugs.apps.render does, on the card (or on the CPU with --device cpu).
 
   python -m tpugs_torch.apps.render -m model.ply -o frames/ [--frames 60]
       [--width 1280 --height 720] [--mode rgb|depth|heatmap]
-      [--device cuda|cpu]
+      [-d colmap_dir] [--device cuda|cpu]
+
+With -d it renders the dataset's test cameras (every 8th image, at their
+own sizes) instead of an orbit.
 
 Prints one line per frame: its pair count, busiest tile and render time.
 """
@@ -18,7 +21,7 @@ def main(argv=None):
     p.add_argument("-m", "--model", required=True)
     p.add_argument("-o", "--output", default="frames")
     p.add_argument("-d", "--data", default=None,
-                   help="COLMAP dir: render its test cameras (not yet ported)")
+                   help="COLMAP dir: render its test cameras instead of an orbit")
     p.add_argument("--frames", type=int, default=60)
     p.add_argument("--width", type=int, default=1280)
     p.add_argument("--height", type=int, default=720)
@@ -38,11 +41,6 @@ def main(argv=None):
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
 
-    if args.data:
-        raise NotImplementedError(
-            "-d/--data: COLMAP cameras need the data layer, which is not yet "
-            "ported to tpugs_torch; render an orbit instead")
-
     from tpugs_torch.io.ply import read_gaussian_ply
     from tpugs_torch.viewer.camera import orbit_trajectory
     from tpugs_torch.viewer.offline import OfflineRenderer
@@ -53,8 +51,13 @@ def main(argv=None):
         pair_capacity=args.pair_capacity, max_hits=args.max_hits,
         on_overflow=args.on_overflow, device=args.device,
     )
-    cams = orbit_trajectory(model["means"], args.frames, args.width,
-                            args.height, elevation_deg=args.elevation)
+    if args.data:
+        from tpugs_torch.data.dataset import Dataset
+
+        cams = Dataset(args.data).test_cameras
+    else:
+        cams = orbit_trajectory(model["means"], args.frames, args.width,
+                                args.height, elevation_deg=args.elevation)
     paths = renderer.render_trajectory(
         cams, args.output, mode=args.mode, background=tuple(args.background)
     )

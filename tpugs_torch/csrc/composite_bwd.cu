@@ -1,9 +1,16 @@
 // Backward compositor: per-pair gradients of each tile's aligned,
 // depth-sorted attribute segment, walked back to front.
 //
-// Replaces: tpugs/ops/pallas/composite_t.py::_bwd_kernel with
-// transposed_out=True (attribute-major output, one contiguous row per
-// gradient).
+// Replaces: tpugs/ops/pallas/composite_t.py::_bwd_kernel, both layouts:
+// transposed_out=True (K4, attribute-major [9, P_al], one contiguous row per
+// gradient: the sorted segment reduction's input) and transposed_out=False
+// (K4b, entry-major [P_al, 9], one row of nine gradients per slot: the
+// scatter-add and the interval segment sum gather whole rows). The layout is
+// a runtime argument of the one kernel: the walk and the summation tree are
+// the same code, only the final store's addresses differ, so the two
+// layouts are bit-identical under transposition. A row is NUM_ATTR = 9
+// floats, not the TPU's 128-lane row: the 128 lanes were the TPU's lane
+// tile, and every consumer reads only the first nine.
 //
 // Bound on the H100: operations. Each (pixel, entry) pair the gradient
 // needs costs 53 float operations, exp counted as one and comparisons and
@@ -32,6 +39,8 @@
 //   memory; after the batch the block adds them in warp order and writes
 //   the entries' nine rows. No atomics: the result is deterministic, and
 //   the plain PyTorch version repeats this summation tree.
+// - Entry-major stores go as idx -> (slot idx / 9, gradient idx % 9), so
+//   neighbouring threads write neighbouring addresses in both layouts.
 // - Slots past the tile's largest k_last, up to its count, are written as
 //   zeros; slots past the count (alignment gaps) are not written, and the
 //   caller masks them before reducing.
@@ -64,7 +73,7 @@ composite_bwd_kernel(const float* __restrict__ attr, long long pal,
                      const float* __restrict__ r0,
                      const float* __restrict__ final_t,
                      const int* __restrict__ k_last,
-                     float* __restrict__ out) {
+                     float* __restrict__ out, int entry_major) {
   __shared__ float s_attr[kAttr][kBatch];
   __shared__ float s_part[kGrad][kWarps][kBatch];
   __shared__ int s_max[kWarps];
@@ -110,9 +119,15 @@ composite_bwd_kernel(const float* __restrict__ attr, long long pal,
   kmax = min(kmax, num - 1);
 
   // Entries past every pixel's last contributor have zero gradient.
-  for (int k = kmax + 1 + threadIdx.x; k < num; k += kThreads) {
+  if (entry_major) {
+    const int nz = max(num - (kmax + 1), 0) * kGrad;
+    float* z = out + (start + kmax + 1) * kGrad;
+    for (int idx = threadIdx.x; idx < nz; idx += kThreads) z[idx] = 0.0f;
+  } else {
+    for (int k = kmax + 1 + threadIdx.x; k < num; k += kThreads) {
 #pragma unroll
-    for (int r = 0; r < kGrad; ++r) out[r * pal + start + k] = 0.0f;
+      for (int r = 0; r < kGrad; ++r) out[r * pal + start + k] = 0.0f;
+    }
   }
 
   for (int hi = kmax; hi >= 0; hi -= kBatch) {
@@ -193,12 +208,19 @@ composite_bwd_kernel(const float* __restrict__ attr, long long pal,
     }
     __syncthreads();
     for (int idx = threadIdx.x; idx < kGrad * nb; idx += kThreads) {
-      const int r = idx / nb;
-      const int j = idx - r * nb;
+      int r, j;
+      if (entry_major) {
+        j = idx / kGrad;
+        r = idx - j * kGrad;
+      } else {
+        r = idx / nb;
+        j = idx - r * nb;
+      }
       float s = s_part[r][0][j];
 #pragma unroll
       for (int w = 1; w < kWarps; ++w) s = __fadd_rn(s, s_part[r][w][j]);
-      out[r * pal + start + lo + j] = r < 2 ? -s : s;
+      const long long col = start + lo + j;
+      out[entry_major ? col * kGrad + r : r * pal + col] = r < 2 ? -s : s;
     }
   }
 }
@@ -208,10 +230,10 @@ void launch(int num_tiles, cudaStream_t stream, const float* attr,
             long long pal, const int* astart, const int* astop, int ntx,
             int tile_w, int tile_h, int pix, int row_offset,
             const float* d_color, const float* r0, const float* final_t,
-            const int* k_last, float* out) {
+            const int* k_last, float* out, int entry_major) {
   composite_bwd_kernel<PPT><<<num_tiles, kThreads, 0, stream>>>(
       attr, pal, astart, astop, ntx, tile_w, tile_h, pix, row_offset, d_color,
-      r0, final_t, k_last, out);
+      r0, final_t, k_last, out, entry_major);
 }
 
 }  // namespace
@@ -222,7 +244,8 @@ extern "C" int tpugs_composite_bwd(int device, const void* attr,
                                    int tile_w, int tile_h, int row_offset,
                                    const void* d_color, const void* r0,
                                    const void* final_t, const void* k_last,
-                                   void* out, void* stream) {
+                                   void* out, int entry_major,
+                                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int pix = tile_w * tile_h;
@@ -240,15 +263,15 @@ extern "C" int tpugs_composite_bwd(int device, const void* attr,
   float* o = (float*)out;
   const int ppt = (pix + kThreads - 1) / kThreads;
   if (ppt <= 1) {
-    launch<1>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o);
+    launch<1>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o, entry_major);
   } else if (ppt <= 2) {
-    launch<2>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o);
+    launch<2>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o, entry_major);
   } else if (ppt <= 4) {
-    launch<4>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o);
+    launch<4>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o, entry_major);
   } else if (ppt <= 8) {
-    launch<8>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o);
+    launch<8>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o, entry_major);
   } else {
-    launch<16>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o);
+    launch<16>(num_tiles, s, a, pal, s0, s1, ntx, tile_w, tile_h, pix, row_offset, dc, rr, ft, kl, o, entry_major);
   }
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,16 @@
 // Pair expansion: each gaussian's touched tile rect becomes one slot per
 // (gaussian, tile) in gaussian-major order, with the pixel-exact corner cull.
 //
-// Replaces: tpugs/ops/pallas/expand.py::_expand_kernel (4-row mode).
+// Replaces: tpugs/ops/pallas/expand.py::_expand_kernel, in its 4-row mode
+// (K1) and in its carry_attrs mode (K1b): given a second table of the nine
+// compositor attributes per gaussian (x y ca cb cc op r g b), every slot
+// also writes its gaussian's nine values, so the pair sort can carry them
+// in place of the gather that packs them per sorted pair.
 //
 // Bound on the H100: bytes. Per gaussian it reads one 9-word table column
 // and per slot it writes 12 bytes (tile, depth, gid); the arithmetic is a
-// handful of integer and float operations per slot.
+// handful of integer and float operations per slot. Carry mode adds nine
+// words read per gaussian and nine written per slot.
 //
 // Design:
 // - One warp per gaussian. The lanes stride over the gaussian's rect slots,
@@ -23,6 +28,9 @@
 //   never contracts into an FMA. It then rounds exactly as the reference's
 //   separate f32 multiplies and add.
 // - Culled slots hold the sentinel: tile = num_tiles, depth = +inf.
+// - Carry mode writes the attributes as nine rows [9, p_out], so the lanes
+//   of a warp write neighbouring words of each row; a culled slot carries
+//   its gaussian's values too (it sorts past every tile's segment).
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -30,6 +38,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kAttr = 9;  // carry mode: x y ca cb cc op r g b
 
 // itab: int32 [5, n] rows = offset, count, tx0, ty0, w (w >= 1).
 // ftab: f32   [4, n] rows = gx, gy, r2 (cull radius squared), depth key.
@@ -37,7 +46,8 @@ __global__ void __launch_bounds__(kThreads)
 expand_kernel(const int* __restrict__ itab, const float* __restrict__ ftab,
               int n, int p_out, int num_tiles, int ntx, int tile_w,
               int tile_h, int* __restrict__ out_tile,
-              float* __restrict__ out_depth, int* __restrict__ out_gid) {
+              float* __restrict__ out_depth, int* __restrict__ out_gid,
+              const float* __restrict__ atab, float* __restrict__ out_attr) {
   const int lane = threadIdx.x & 31;
   const long long g = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
   // No barrier in this kernel, so leaving early cannot deadlock.
@@ -69,6 +79,11 @@ expand_kernel(const int* __restrict__ itab, const float* __restrict__ ftab,
     out_tile[s] = hit ? ty * ntx + tx : num_tiles;
     out_depth[s] = hit ? depth : INFINITY;
     out_gid[s] = (int)g;
+    if (atab != nullptr) {
+#pragma unroll
+      for (int r = 0; r < kAttr; ++r)
+        out_attr[(long long)r * p_out + s] = atab[(long long)r * n + g];
+    }
   }
 }
 
@@ -77,14 +92,16 @@ expand_kernel(const int* __restrict__ itab, const float* __restrict__ ftab,
 extern "C" int tpugs_expand(int device, const void* itab, const void* ftab,
                             int n, int p_out, int num_tiles, int ntx,
                             int tile_w, int tile_h, void* out_tile,
-                            void* out_depth, void* out_gid, void* stream) {
+                            void* out_depth, void* out_gid,
+                            const void* atab, void* out_attr, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n > 0 && p_out > 0) {
     const long long blocks = ((long long)n + kWarps - 1) / kWarps;
     expand_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         (const int*)itab, (const float*)ftab, n, p_out, num_tiles, ntx,
-        tile_w, tile_h, (int*)out_tile, (float*)out_depth, (int*)out_gid);
+        tile_w, tile_h, (int*)out_tile, (float*)out_depth, (int*)out_gid,
+        (const float*)atab, (float*)out_attr);
   }
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,12 @@
+// Two segment sums of the nine per-pair gradients into per-gaussian sums:
+// the sorted one (K5, `tpugs_segreduce_sorted`) and the interval one (K6,
+// `tpugs_segreduce_interval`), further down.
+//
 // Sorted segment sum: per-gaussian sums of the nine per-pair gradient
 // columns, once the pairs are sorted by gaussian id.
 //
-// Replaces: tpugs/ops/pallas/segreduce.py::_segreduce_sorted_kernel.
+// Replaces: tpugs/ops/pallas/segreduce.py::_segreduce_sorted_kernel (K5)
+// and tpugs/ops/pallas/segreduce.py::_segreduce_kernel (K6).
 //
 // Bound on the H100: bytes. Each sorted slot's nine columns are read once
 // and each gaussian's nine sums written once; there is one add per byte
@@ -44,7 +49,60 @@ segreduce_sorted_kernel(const float* __restrict__ cols, long long p,
   }
 }
 
+// Interval segment sum (K6): rows [P, 9] f32 hold one gradient row per
+// expansion slot, gaussian-major: gaussian g's slots are the interval
+// [start[g], start[g] + count[g]), the intervals monotone and disjoint.
+//
+// Bound on the H100: bytes. Each slot of an interval is read once (36
+// bytes), each gaussian's interval (8 bytes) read and its nine sums (36
+// bytes) written once; one add per float read.
+//
+// Design:
+// - One thread per gaussian adds its interval's rows in slot order, from
+//   zero, nine sums in registers, and writes column g of the [9, n] output
+//   (zero for an empty interval). The TPU kernel's interval one-hot matmul
+//   over 512-gaussian blocks was a matrix-unit artifact and is not carried
+//   over.
+// - Neighbouring threads own neighbouring intervals, so a warp reads one
+//   contiguous span of rows (a row is 36 contiguous bytes) and writes 32
+//   neighbouring words per output row.
+// - No atomics: the sums are deterministic, and the plain PyTorch version
+//   adds in the same order, so the two agree to the bit.
+__global__ void __launch_bounds__(kThreads)
+segreduce_interval_kernel(const float* __restrict__ rows,
+                          const int* __restrict__ start,
+                          const int* __restrict__ count, int n,
+                          float* __restrict__ out) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= n) return;  // no barrier in this kernel
+  const long long lo = start[g];
+  const long long hi = lo + count[g];
+  float s[kCols];
+#pragma unroll
+  for (int r = 0; r < kCols; ++r) s[r] = 0.0f;
+  for (long long i = lo; i < hi; ++i) {
+    const float* row = rows + i * kCols;
+#pragma unroll
+    for (int r = 0; r < kCols; ++r) s[r] = __fadd_rn(s[r], row[r]);
+  }
+#pragma unroll
+  for (int r = 0; r < kCols; ++r) out[(long long)r * n + g] = s[r];
+}
+
 }  // namespace
+
+extern "C" int tpugs_segreduce_interval(int device, const void* rows,
+                                        const void* start, const void* count,
+                                        int n, void* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n <= 0) return (int)cudaGetLastError();
+  const int blocks = (n + kThreads - 1) / kThreads;
+  segreduce_interval_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)rows, (const int*)start, (const int*)count, n,
+      (float*)out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int tpugs_segreduce_sorted(int device, const void* cols,
                                       long long p, const void* bounds, int n,

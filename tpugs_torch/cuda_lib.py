@@ -37,13 +37,15 @@ BUILD_TIMEOUT_S = 600
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # name -> argtypes; every function returns a cudaError_t as int.
 SIGNATURES = {
-    "tpugs_expand": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "tpugs_expand": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                     _P],
     "tpugs_align_copy": [_I, _P, _L, _P, _P, _P, _I, _P, _L, _P],
     "tpugs_composite_fwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P],
     "tpugs_composite_bwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P, _P],
+                            _P, _P, _P, _I, _P],
     "tpugs_segreduce_sorted": [_I, _P, _L, _P, _I, _P, _P],
+    "tpugs_segreduce_interval": [_I, _P, _P, _P, _I, _P, _P],
 }
 
 _lib = None

@@ -14,6 +14,20 @@ tile_start/tile_stop come from a binary search of the sorted keys.
 Unlike the reference, the pair arrays are as long as the pairs that survive
 the capacity, min(total, pair_capacity), not a fixed padded length: that
 costs one host read of the total per frame.
+
+Two options of the reference's kernel path:
+
+- reduce_meta: the metadata of the classic backward reduction. exp_slot
+  [P] is each sorted pair's expansion slot (the sort's permutation, in all
+  three sorts); gaussian g's slots are [red_start[g], red_start[g] +
+  red_count[g]) and every interval ends by exp_end. The port's expansion
+  has no per-chunk padding, so these are the clipped offsets and counts
+  with exp_end = min(total, pair_capacity), where the reference's are chunk
+  positions; both truncate at the pair capacity.
+- carry_attrs: the expand kernel's carry mode writes the nine compositor
+  attributes per slot and the sort's permutation carries them into attr_c
+  [11, P] (x y ca cb cc op r g b gid valid, pack.pack_compact_attrs'
+  rows), bit-identical inside every tile segment to the gathered table.
 """
 from __future__ import annotations
 
@@ -22,6 +36,7 @@ import dataclasses
 import torch
 
 from tpugs_torch.ops import expand as EX
+from tpugs_torch.ops import pack
 from tpugs_torch.ops.projection import ProjectionOutput
 
 F32_MAX = torch.finfo(torch.float32).max
@@ -38,6 +53,14 @@ class BinningResult:
     tile_stop  [T]  end of the run, exclusive (int32)
     num_pairs  []   true total pair count (may exceed the capacity)
     overflow   []   bool: the total exceeded the capacity (pairs dropped)
+
+    With reduce_meta (else None):
+    exp_slot   [P]  int32 expansion slot of each sorted pair
+    red_start  [N]  int32 first expansion slot of each gaussian
+    red_count  [N]  int32 its slots inside the capacity
+    exp_end    int  end of the expansion's slots, min(total, capacity)
+    With carry_attrs (else None):
+    attr_c     [11, P] f32 sorted attributes x y ca cb cc op r g b gid valid
     """
 
     pair_gauss: torch.Tensor
@@ -46,6 +69,11 @@ class BinningResult:
     tile_stop: torch.Tensor
     num_pairs: torch.Tensor
     overflow: torch.Tensor
+    exp_slot: torch.Tensor | None = None
+    red_start: torch.Tensor | None = None
+    red_count: torch.Tensor | None = None
+    exp_end: int | None = None
+    attr_c: torch.Tensor | None = None
 
 
 def tile_rects(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
@@ -131,15 +159,19 @@ def _depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
 
 def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
                num_tiles: int, n: int, total: int, pair_capacity: int,
-               presorted: bool = False, qbits: int = 0) -> BinningResult:
+               presorted: bool = False, qbits: int = 0,
+               reduce_meta: bool = False,
+               attrs: torch.Tensor | None = None) -> BinningResult:
     """Sort expanded (tile, depth, gid) slots into per-tile runs. `depth` is
-    the quantized bin when qbits > 0 and unused when presorted."""
+    the quantized bin when qbits > 0 and unused when presorted.
+    reduce_meta keeps the sort's permutation as exp_slot; attrs [9, P] (the
+    expand kernel's carry mode) go through it into attr_c."""
     dev = tile.device
     tile64 = tile.to(torch.int64)
     if presorted:
         shift = _index_bits(n)
         key = (tile64 << shift) | gid.to(torch.int64)
-        skey, _ = torch.sort(key)
+        skey, order = torch.sort(key)
         sorted_g = skey & ((1 << shift) - 1)
     else:
         if qbits > 0:
@@ -156,13 +188,20 @@ def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
     tile_start = torch.searchsorted(skey, bounds).to(torch.int32)
     tile_stop = torch.searchsorted(skey, bounds + (1 << shift)).to(torch.int32)
     sorted_tile = torch.clamp(skey >> shift, max=num_tiles).to(torch.int32)
+    pair_gauss = sorted_g.to(torch.int32)
+    attr_c = None
+    if attrs is not None:
+        attr_c = torch.cat([attrs[:, order], pair_gauss.to(torch.float32)[None],
+                            (sorted_tile < num_tiles).to(torch.float32)[None]])
     return BinningResult(
-        pair_gauss=sorted_g.to(torch.int32),
+        pair_gauss=pair_gauss,
         pair_tile=sorted_tile,
         tile_start=tile_start,
         tile_stop=tile_stop,
         num_pairs=torch.tensor(total, dtype=torch.int64, device=dev),
         overflow=torch.tensor(total > pair_capacity, device=dev),
+        exp_slot=order.to(torch.int32) if reduce_meta else None,
+        attr_c=attr_c,
     )
 
 
@@ -265,21 +304,43 @@ def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
                         num_tiles=num_tiles, ntx=ntx, qbits=qbits)
 
 
+def reduce_intervals(itab: torch.Tensor, p_out: int):
+    """Each gaussian's expansion interval clipped to the p_out slots that
+    survive the capacity -> (red_start, red_count) int32 [N]."""
+    off, cnt = itab[0].to(torch.int64), itab[1].to(torch.int64)
+    lo = torch.clamp(off, max=p_out)
+    hi = torch.clamp(off + cnt, max=p_out)
+    return lo.to(torch.int32), (hi - lo).to(torch.int32)
+
+
 def bin_gaussians_expand_kernel(proj: ProjectionOutput, img_w: int,
                                 img_h: int, tile_w: int, tile_h: int,
                                 pair_capacity: int, presorted: bool = False,
-                                quant_key_bits: int = 0) -> BinningResult:
+                                quant_key_bits: int = 0,
+                                reduce_meta: bool = False,
+                                carry_attrs: bool = False) -> BinningResult:
     """bin_gaussians with the expansion done by the expand kernel. The
     sorted segments are bit-identical to bin_gaussians' (presorted or 2-key
     sort); with quant_key_bits > 0 they hold the same pairs per tile in
-    quantized-depth order, same-bin order arbitrary."""
+    quantized-depth order, same-bin order arbitrary. reduce_meta and
+    carry_attrs as in the module's docstring."""
     ex = expand_inputs(proj, img_w, img_h, tile_w, tile_h, pair_capacity,
                        presorted, quant_key_bits)
-    tile, depth, gid = EX.expand_pairs(ex.itab, ex.ftab, ex.p_out,
-                                       ex.num_tiles, ex.ntx, tile_w, tile_h)
-    return sort_pairs(tile, depth, gid, ex.num_tiles, proj.depths.shape[0],
-                      ex.total, pair_capacity, presorted=presorted,
-                      qbits=ex.qbits)
+    atab = None
+    if carry_attrs:
+        atab = pack.gaussian_attrs(proj.means2d, proj.conic, proj.rgb,
+                                   proj.opac).T.contiguous()
+    tile, depth, gid, *attrs = EX.expand_pairs(
+        ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile_w, tile_h,
+        atab)
+    b = sort_pairs(tile, depth, gid, ex.num_tiles, proj.depths.shape[0],
+                   ex.total, pair_capacity, presorted=presorted,
+                   qbits=ex.qbits, reduce_meta=reduce_meta,
+                   attrs=attrs[0] if attrs else None)
+    if reduce_meta:
+        b.red_start, b.red_count = reduce_intervals(ex.itab, ex.p_out)
+        b.exp_end = ex.p_out
+    return b
 
 
 def clamp_tile_segments(binning: BinningResult, max_hits: int):

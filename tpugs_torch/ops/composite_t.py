@@ -21,13 +21,19 @@ a = alpha where the entry contributed (passes and k <= k_last) and 0
 elsewhere; the suffix sum R, from r0 = (dC.bg + dL/dT_final) T_final, gives
 dL/dalpha = T dC.rgb - R / (1 - a). The opacity and power gradients are
 zero where opac * gauss >= 0.99 (the clamp). Output: the 9 per-pair
-gradient rows [NUM_ATTR, P_al] (d x, d y, d ca, d cb, d cc, d opac, d r,
-d g, d b, with the conic in its pre-scaled form); columns outside the
-tiles' [astart, astop) are not written.
+gradients (d x, d y, d ca, d cb, d cc, d opac, d r, d g, d b, with the
+conic in its pre-scaled form), attribute-major [NUM_ATTR, P_al]
+(transposed_out=True, the sorted reduction's input) or entry-major
+[P_al, NUM_ATTR] (transposed_out=False, the scatter-add's and the interval
+segment sum's); slots outside the tiles' [astart, astop) are not written.
+The two layouts come from one kernel and are bit-identical under
+transposition.
 
 The CUDA kernels are csrc/composite_fwd.cu and csrc/composite_bwd.cu (they
-replace tpugs/ops/pallas/composite_t.py::_fwd_kernel and _bwd_kernel). A
-CUDA tensor goes to the kernel, a CPU tensor to the plain version.
+replace tpugs/ops/pallas/composite_t.py::_fwd_kernel and _bwd_kernel in
+both its layouts). A CUDA tensor goes to the kernel, a CPU tensor to the
+plain version. composite_backward counts its launches per layout:
+`.launches` (attribute-major) and `.launches_entry_major`.
 """
 from __future__ import annotations
 
@@ -167,13 +173,22 @@ def composite_backward_plain(cfg: RasterConfig, astart: torch.Tensor,
                              d_color_t: torch.Tensor, r0: torch.Tensor,
                              final_t: torch.Tensor, k_last: torch.Tensor,
                              row_offset: int = 0,
-                             tiles: torch.Tensor | None = None) -> torch.Tensor:
+                             tiles: torch.Tensor | None = None,
+                             transposed_out: bool = True) -> torch.Tensor:
     """Plain version: entry k of every tile per step, from the frame's
     largest k_last down to 0, all tiles and pixels at once, with the
     kernel's arithmetic and summation order; every EXIT_CHECK steps it takes
     in the tiles whose walk has begun. `tiles` restricts it to a subset;
-    the other tiles' columns stay zero. Returns [NUM_ATTR, P_al], zero
-    outside the walked entries."""
+    the other tiles' columns stay zero. Returns [NUM_ATTR, P_al] (or its
+    transpose [P_al, NUM_ATTR] with transposed_out=False), zero outside the
+    walked entries."""
+    out = _backward_plain_rows(cfg, astart, astop, attr, d_color_t, r0,
+                               final_t, k_last, row_offset, tiles)
+    return out if transposed_out else out.T.contiguous()
+
+
+def _backward_plain_rows(cfg, astart, astop, attr, d_color_t, r0, final_t,
+                         k_last, row_offset, tiles) -> torch.Tensor:
     dev = attr.device
     pal = attr.shape[1]
     sel = (torch.arange(cfg.num_tiles, device=dev) if tiles is None
@@ -251,15 +266,17 @@ def composite_backward(cfg: RasterConfig, astart: torch.Tensor,
                        astop: torch.Tensor, attr: torch.Tensor,
                        d_color_t: torch.Tensor, r0: torch.Tensor,
                        final_t: torch.Tensor, k_last: torch.Tensor,
-                       row_offset: int = 0) -> torch.Tensor:
+                       row_offset: int = 0,
+                       transposed_out: bool = True) -> torch.Tensor:
     """Per-pair gradients of every tile. attr [ATTR_ROWS, P_al] f32 (the
     forward's aligned table), astart/astop [T] int32, d_color_t [T, PIX, 3],
     r0 and final_t [T, PIX] f32, k_last [T, PIX] int32 (the forward's).
-    Returns [NUM_ATTR, P_al] f32; columns outside [astart, astop) are not
-    written by the kernel."""
+    Returns [NUM_ATTR, P_al] f32 (transposed_out=True) or [P_al, NUM_ATTR]
+    (False); slots outside [astart, astop) are not written by the kernel."""
     if attr.device.type == "cpu":
         return composite_backward_plain(cfg, astart, astop, attr, d_color_t,
-                                        r0, final_t, k_last, row_offset)
+                                        r0, final_t, k_last, row_offset,
+                                        transposed_out=transposed_out)
     dev = attr.device
     nt, pix = cfg.num_tiles, cfg.pix
     cuda_lib.require(attr, "attr", torch.float32, dev, 2)
@@ -286,17 +303,22 @@ def composite_backward(cfg: RasterConfig, astart: torch.Tensor,
     pal = attr.shape[1]
     if nt and int(torch.max(astop)) > pal:
         raise ValueError(f"composite_backward: segments end past column {pal}")
-    out = torch.empty((NUM_ATTR, pal), dtype=torch.float32, device=dev)
+    shape = (NUM_ATTR, pal) if transposed_out else (pal, NUM_ATTR)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
     if nt == 0:
         return out
     code = lib.tpugs_composite_bwd(
         dev.index, attr.data_ptr(), pal, astart.data_ptr(), astop.data_ptr(),
         nt, cfg.ntx, cfg.tile_w, cfg.tile_h, row_offset, d_color_t.data_ptr(),
         r0.data_ptr(), final_t.data_ptr(), k_last.data_ptr(), out.data_ptr(),
-        cuda_lib.stream_ptr(dev))
-    composite_backward.launches += 1
+        int(not transposed_out), cuda_lib.stream_ptr(dev))
+    if transposed_out:
+        composite_backward.launches += 1
+    else:
+        composite_backward.launches_entry_major += 1
     cuda_lib.check("tpugs_composite_bwd", code)
     return out
 
 
 composite_backward.launches = 0
+composite_backward.launches_entry_major = 0

@@ -9,9 +9,16 @@ the reference's clamped chunk offsets drop them, and every output slot is
 written. A culled slot holds the sentinel: tile = num_tiles, depth = +inf.
 Validity is `tile < num_tiles`.
 
+Carry mode (`atab`, the reference's carry_attrs): a second table of the
+nine compositor attributes per gaussian (x y ca cb cc op r g b, conic
+pre-scaled), and every slot also writes its gaussian's nine values into
+[9, p_out].
+
 The CUDA kernel is csrc/expand.cu (it replaces
-tpugs/ops/pallas/expand.py::_expand_kernel in its 4-row mode). A CUDA
-tensor goes to the kernel, a CPU tensor to `expand_pairs_plain`.
+tpugs/ops/pallas/expand.py::_expand_kernel in its 4-row mode and in its
+carry_attrs mode). A CUDA tensor goes to the kernel, a CPU tensor to
+`expand_pairs_plain`. expand_pairs counts its launches per mode:
+`.launches` (4-row) and `.launches_carry`.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ PAD_ALIGN = 128  # per-chunk output padding
 
 ITAB_ROWS = 5  # offset, count, tx0, ty0, w (>= 1)
 FTAB_ROWS = 4  # gx, gy, r2 (cull radius squared), depth key
+ATAB_ROWS = 9  # carry mode: x y ca cb cc op r g b
 
 
 def expand_capacity(pair_capacity: int, n: int) -> int:
@@ -39,10 +47,12 @@ def expand_capacity(pair_capacity: int, n: int) -> int:
 
 
 def expand_pairs_plain(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
-                       num_tiles: int, ntx: int, tile_w: int, tile_h: int):
+                       num_tiles: int, ntx: int, tile_w: int, tile_h: int,
+                       atab: torch.Tensor | None = None):
     """Plain version of the expansion: one vectorised pass over the slots,
     each finding its owner by a search over the offsets. Returns (tile i32
-    [p_out], depth f32 [p_out], gid i32 [p_out])."""
+    [p_out], depth f32 [p_out], gid i32 [p_out]) and, with atab, the
+    attributes f32 [9, p_out]."""
     dev = itab.device
     off, _, tx0, ty0, w = (r.to(torch.int64) for r in itab)
     gx, gy, r2, depth = ftab
@@ -62,18 +72,21 @@ def expand_pairs_plain(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
     hit = dx * dx + dy * dy <= r2[g]
     tile = torch.where(hit, ty * ntx + tx, torch.full_like(tx, num_tiles))
     dep = torch.where(hit, depth[g], torch.full_like(gxg, float("inf")))
-    return tile.to(torch.int32), dep, g.to(torch.int32)
+    out = (tile.to(torch.int32), dep, g.to(torch.int32))
+    return out if atab is None else out + (atab[:, g],)
 
 
 def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
-                 num_tiles: int, ntx: int, tile_w: int, tile_h: int):
+                 num_tiles: int, ntx: int, tile_w: int, tile_h: int,
+                 atab: torch.Tensor | None = None):
     """Expand gaussians into p_out (tile, depth, gid) slots. itab int32
     [5, N] (offset, count, tx0, ty0, w >= 1), ftab f32 [4, N] (gx, gy, r2,
     depth key); offsets are the exclusive prefix sum of the counts. Returns
-    (tile i32 [p_out], depth f32 [p_out], gid i32 [p_out])."""
+    (tile i32 [p_out], depth f32 [p_out], gid i32 [p_out]); with atab f32
+    [9, N] (carry mode) also each slot's attributes f32 [9, p_out]."""
     if itab.device.type == "cpu":
         return expand_pairs_plain(itab, ftab, p_out, num_tiles, ntx, tile_w,
-                                  tile_h)
+                                  tile_h, atab)
     dev = itab.device
     cuda_lib.require(itab, "itab", torch.int32, dev, 2)
     cuda_lib.require(ftab, "ftab", torch.float32, dev, 2)
@@ -81,21 +94,37 @@ def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
     if itab.shape[0] != ITAB_ROWS or tuple(ftab.shape) != (FTAB_ROWS, n):
         raise ValueError(f"expand_pairs: itab {tuple(itab.shape)}, ftab "
                          f"{tuple(ftab.shape)}; expected [5, N] and [4, N]")
+    if atab is not None:
+        cuda_lib.require(atab, "atab", torch.float32, dev, 2)
+        if tuple(atab.shape) != (ATAB_ROWS, n):
+            raise ValueError(f"expand_pairs: atab {tuple(atab.shape)}; "
+                             f"expected [{ATAB_ROWS}, {n}]")
     if not 0 <= p_out < 2**31 or n >= 2**31:
         raise ValueError(f"expand_pairs: p_out {p_out} or n {n} out of range")
     lib = cuda_lib.lib()
     tile = torch.empty(p_out, dtype=torch.int32, device=dev)
     depth = torch.empty(p_out, dtype=torch.float32, device=dev)
     gid = torch.empty(p_out, dtype=torch.int32, device=dev)
+    out = (tile, depth, gid)
+    attrs = None
+    if atab is not None:
+        attrs = torch.empty((ATAB_ROWS, p_out), dtype=torch.float32,
+                            device=dev)
+        out += (attrs,)
     if p_out == 0 or n == 0:
-        return tile, depth, gid
+        return out
     code = lib.tpugs_expand(
         dev.index, itab.data_ptr(), ftab.data_ptr(), n, p_out, num_tiles,
         ntx, tile_w, tile_h, tile.data_ptr(), depth.data_ptr(),
-        gid.data_ptr(), cuda_lib.stream_ptr(dev))
-    expand_pairs.launches += 1
+        gid.data_ptr(), None if atab is None else atab.data_ptr(),
+        None if attrs is None else attrs.data_ptr(), cuda_lib.stream_ptr(dev))
+    if atab is None:
+        expand_pairs.launches += 1
+    else:
+        expand_pairs.launches_carry += 1
     cuda_lib.check("tpugs_expand", code)
-    return tile, depth, gid
+    return out
 
 
 expand_pairs.launches = 0
+expand_pairs.launches_carry = 0

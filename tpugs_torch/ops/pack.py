@@ -58,11 +58,17 @@ def p_aligned_chunked(pair_capacity: int, num_tiles: int) -> int:
     return -(-raw // CHUNK) * CHUNK + CHUNK
 
 
+def gaussian_attrs(means2d, conic, rgb, opac) -> torch.Tensor:
+    """The nine compositor attributes per gaussian -> [N, NUM_ATTR]: x y,
+    the pre-scaled conic (-a/2, -b, -c/2), opac, r g b."""
+    scale = torch.tensor([-0.5, -1.0, -0.5], dtype=conic.dtype, device=conic.device)
+    return torch.cat([means2d, conic * scale, opac[:, None], rgb], dim=1)
+
+
 def pack_compact_attrs(pair_gauss, means2d, conic, rgb, opac, p_pad: int):
     """Per-pair attributes in compact sorted order -> [ATTR_ROWS, p_pad]
     (columns past the pairs are zero)."""
-    scale = torch.tensor([-0.5, -1.0, -0.5], dtype=conic.dtype, device=conic.device)
-    attr = torch.cat([means2d, conic * scale, opac[:, None], rgb], dim=1)
+    attr = gaussian_attrs(means2d, conic, rgb, opac)
     gathered = attr[pair_gauss.to(torch.int64)]  # [P, 9]
     gid = pair_gauss.to(torch.float32)[:, None]
     rows = torch.cat([gathered, gid, torch.ones_like(gid)], dim=1)

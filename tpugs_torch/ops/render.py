@@ -2,10 +2,10 @@
 tpugs/ops/render.py on its kernel branch.
 
 On a CUDA tensor every stage with a kernel launches it (expand, align-copy,
-forward compositor; in the backward the backward compositor and the sorted
-segment reduction); on a CPU tensor the same stages run their plain
-PyTorch versions. Projection, SH and the depth presort's permutation run
-under autograd; binning carries no gradient.
+forward compositor; in the backward the backward compositor and a segment
+sum); on a CPU tensor the same stages run their plain PyTorch versions.
+Projection, SH and the depth presort's permutation run under autograd;
+binning carries no gradient.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import dataclasses
 import torch
 
 from tpugs_torch.ops import binning as B
-from tpugs_torch.ops.composite import CompositeSegred, composite_tiles_forward
+from tpugs_torch.ops import composite as C
 from tpugs_torch.ops.projection import project_gaussians
 from tpugs_torch.ops.rasterize_tiled import RasterConfig, tiles_to_image
 
@@ -39,27 +39,10 @@ class RenderOutput:
     hit_overflow: torch.Tensor  # [] bool: a tile exceeded max_hits_per_tile
 
 
-class _NoBackward(torch.autograd.Function):
-    """Identity on the outputs of render(need_grads=False) whose backward
-    raises: that render keeps no autograd graph and runs no backward."""
-
-    @staticmethod
-    def forward(ctx, color, final_t, *params):
-        return color.clone(), final_t.clone()
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "backward through render(need_grads=False): the reference's "
-            "gradient of that variant (composite_tiles_pallas, the "
-            "entry-major backward kernel plus a scatter-add, ROADMAP A11/B6) "
-            "is not yet ported; render with need_grads=True")
-
-
 def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
            intrinsics, cfg: RasterConfig, sh_degree: int, background,
            scale_modifier: float = 1.0, means2d_probe=None, presort="auto",
-           need_grads: bool = True) -> RenderOutput:
+           need_grads: bool = True, carry_attrs: bool = False) -> RenderOutput:
     """Render one view. All tensors on one device; background [3].
 
     presort, as in the reference:
@@ -75,8 +58,19 @@ def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
     gradient is dL/d(screen xy), which densification reads.
 
     need_grads: True (the default) differentiates through the compositor
-    with the backward kernel and the sorted segment reduction. False keeps
-    no autograd graph; a backward through its outputs raises."""
+    with the backward kernel and a segment sum: the sorted one, or the
+    classic one over binning's reduce_meta where
+    composite.segred_needs_meta says so (n >= 2^24, or
+    composite.SORTED_SEGRED_MIN raised). False, as in the reference, builds
+    no reduce_meta and still differentiates, through the scatter-add
+    gradient (composite.CompositeScatter, at most 2^24 gaussians), when
+    autograd is on and an input requires a gradient; otherwise it builds no
+    graph at all.
+
+    carry_attrs: the expand kernel's carry mode streams the nine compositor
+    attributes per pair and the sort carries them, in place of the gather
+    that packs them per sorted pair; images and gradients are bit-identical
+    either way."""
     n = means.shape[0]
     if presort == "auto":
         presort = "exact" if n <= PRESORT_MAX_N else False
@@ -89,7 +83,12 @@ def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
     quant_key_bits = 0
     if presort == "qkey":
         presort, quant_key_bits = False, QKEY_BITS
-    with torch.set_grad_enabled(need_grads and torch.is_grad_enabled()):
+    bg = torch.as_tensor(background, dtype=torch.float32, device=means.device)
+    inputs = (means, quats, log_scales, opacity_logits, sh, means2d_probe, bg)
+    graph = torch.is_grad_enabled() and (need_grads or any(
+        isinstance(x, torch.Tensor) and x.requires_grad for x in inputs))
+    reduce_meta = need_grads and C.segred_needs_meta(cfg, n)
+    with torch.set_grad_enabled(graph):
         proj = project_gaussians(
             means, quats, log_scales, opacity_logits, sh, alive, viewmat,
             intrinsics, cfg.img_w, cfg.img_h, sh_degree, scale_modifier,
@@ -112,26 +111,25 @@ def render(means, quats, log_scales, opacity_logits, sh, alive, viewmat,
             binning = B.bin_gaussians_expand_kernel(
                 proj_b, cfg.img_w, cfg.img_h, cfg.tile_w, cfg.tile_h,
                 cfg.pair_capacity, presorted=bool(presort),
-                quant_key_bits=quant_key_bits,
+                quant_key_bits=quant_key_bits, reduce_meta=reduce_meta,
+                carry_attrs=carry_attrs,
             )
             binning, max_tile_hits = B.clamp_tile_segments(
                 binning, cfg.max_hits_per_tile)
-        bg = torch.as_tensor(background, dtype=torch.float32,
-                             device=means.device)
-        composite = (CompositeSegred.apply if need_grads
-                     else composite_tiles_forward)
-        color_t, t_t, nc_t = composite(
-            cfg, binning.tile_start, binning.tile_stop, binning.pair_gauss,
-            means2d, proj_b.conic, proj_b.rgb, proj_b.opac, bg,
-        )
+        b = binning
+        args = (cfg, b.tile_start, b.tile_stop, b.pair_gauss, means2d,
+                proj_b.conic, proj_b.rgb, proj_b.opac, bg, 0)
+        if need_grads:
+            meta = ((b.pair_tile, b.exp_slot, b.red_start, b.red_count,
+                     b.exp_end) if reduce_meta else None)
+            color_t, t_t, nc_t = C.CompositeSegred.apply(*args, meta, b.attr_c)
+        elif graph:
+            color_t, t_t, nc_t = C.CompositeScatter.apply(*args, b.attr_c)
+        else:
+            color_t, t_t, nc_t = C.composite_tiles_forward(*args, b.attr_c)
     h, w = cfg.img_h, cfg.img_w
     color = tiles_to_image(cfg, color_t)[:h, :w]
     final_t = tiles_to_image(cfg, t_t)[:h, :w]
-    inputs = (means, quats, log_scales, opacity_logits, sh, means2d_probe, bg)
-    if not need_grads and torch.is_grad_enabled() and any(
-            isinstance(x, torch.Tensor) and x.requires_grad for x in inputs):
-        color, final_t = _NoBackward.apply(
-            color, final_t, *[x for x in inputs if isinstance(x, torch.Tensor)])
     return RenderOutput(
         color=color,
         final_T=final_t,

@@ -1,5 +1,7 @@
-"""Pair -> gaussian gradient reduction by a key sort and a sorted segment
-sum, as in tpugs/ops/pallas/segreduce.py::segment_reduce_sorted_pallas.
+"""Pair -> gaussian gradient reductions, as in tpugs/ops/pallas/segreduce.py:
+the sorted segment sum (segment_reduce_sorted_pallas, the default
+backward's) and the interval segment sum (segment_reduce_pallas, the
+classic backward's, below).
 
 The backward compositor writes one gradient column per aligned pair slot.
 Each slot's key is its gaussian id, or SENTINEL where the slot holds no
@@ -15,6 +17,14 @@ The sort and the searchsorted are PyTorch, as the JAX package leaves its
 sort to XLA. The CUDA kernel is csrc/segreduce.cu (it replaces
 tpugs/ops/pallas/segreduce.py::_segreduce_sorted_kernel). A CUDA tensor goes
 to the kernel, a CPU tensor to `segment_sum_sorted_plain`.
+
+The interval segment sum takes per-slot gradient rows [P, NUM_ATTR] already
+in the gaussian-major expansion order, where gaussian g's slots are one
+interval [red_start[g], red_start[g] + red_count[g]) (binning's
+reduce_meta), monotone and disjoint, and adds each interval in slot order.
+It needs no key, so it has no limit on n. Its kernel is also in
+csrc/segreduce.cu (it replaces tpugs/ops/pallas/segreduce.py::
+_segreduce_kernel); a CPU tensor goes to `segment_reduce_plain`.
 """
 from __future__ import annotations
 
@@ -93,3 +103,59 @@ def segment_reduce_sorted(key: torch.Tensor, cols: torch.Tensor,
         raise ValueError(f"segment_reduce_sorted: n = {n} >= {MAX_N}")
     scols, bounds = sort_by_key(key, cols, n)
     return segment_sum_sorted(scols, bounds, n)
+
+
+def segment_reduce_plain(rows: torch.Tensor, red_start: torch.Tensor,
+                         red_count: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version: column g of the output adds rows[red_start[g]] ..
+    rows[red_start[g] + red_count[g] - 1] one by one from zero, as the
+    kernel does; all gaussians whose interval is at least j + 1 long take
+    their j-th slot in one step."""
+    lo, length = red_start.to(torch.int64), red_count.to(torch.int64)
+    out = torch.zeros((NUM_ATTR, n), dtype=torch.float32, device=rows.device)
+    longest = int(length.max()) if n else 0
+    for j in range(longest):
+        act = torch.nonzero(length > j).squeeze(1)
+        out[:, act] = out[:, act] + rows[lo[act] + j].T
+    return out
+
+
+def segment_reduce(rows: torch.Tensor, red_start: torch.Tensor,
+                   red_count: torch.Tensor, exp_end: int,
+                   n: int) -> torch.Tensor:
+    """Per-gaussian sums over monotone, disjoint slot intervals. rows [P,
+    NUM_ATTR] f32 in expansion order, red_start/red_count [n] int32, every
+    interval inside [0, exp_end) and exp_end <= P. Returns [NUM_ATTR, n]
+    f32, zero for an empty interval."""
+    if rows.device.type == "cpu":
+        return segment_reduce_plain(rows, red_start, red_count, n)
+    dev = rows.device
+    cuda_lib.require(rows, "rows", torch.float32, dev, 2)
+    cuda_lib.require(red_start, "red_start", torch.int32, dev, 1)
+    cuda_lib.require(red_count, "red_count", torch.int32, dev, 1)
+    if rows.shape[1] != NUM_ATTR or red_start.shape[0] != n \
+            or red_count.shape[0] != n:
+        raise ValueError(f"segment_reduce: rows {tuple(rows.shape)}, "
+                         f"{red_start.shape[0]} starts, {red_count.shape[0]} "
+                         f"counts; expected [P, {NUM_ATTR}] and {n}")
+    if not 0 <= n < 2**31 or not 0 <= exp_end <= rows.shape[0]:
+        raise ValueError(f"segment_reduce: n = {n}, exp_end = {exp_end} of "
+                         f"{rows.shape[0]} rows")
+    lib = cuda_lib.lib()
+    out = torch.empty((NUM_ATTR, n), dtype=torch.float32, device=dev)
+    if n == 0:
+        return out
+    # Bound of what the kernel reads (one host read).
+    end = int(torch.max(red_start.to(torch.int64) + red_count))
+    if end > exp_end:
+        raise ValueError(f"segment_reduce: an interval ends at slot {end}, "
+                         f"past exp_end = {exp_end}")
+    code = lib.tpugs_segreduce_interval(
+        dev.index, rows.data_ptr(), red_start.data_ptr(), red_count.data_ptr(),
+        n, out.data_ptr(), cuda_lib.stream_ptr(dev))
+    segment_reduce.launches += 1
+    cuda_lib.check("tpugs_segreduce_interval", code)
+    return out
+
+
+segment_reduce.launches = 0

@@ -185,6 +185,13 @@ class Trainer:
             raise ValueError(f"unknown densify_mode {config.densify_mode!r}")
         if config.mesh:
             raise _not_ported(f"mesh={config.mesh!r}", "A12")
+        if config.eval_every > 0:
+            # Refused before any step: the evaluation it would reach is not
+            # ported, and a run that raised there would lose its steps.
+            raise NotImplementedError(
+                f"eval_every={config.eval_every}: Trainer.evaluate "
+                f"(train/metrics.py) is not yet ported to tpugs_torch "
+                f"(ROADMAP A8c); train with eval_every=0")
         self.device = resolve_device(device)
         self.cfg = config
         self.log = log_fn
