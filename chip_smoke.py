@@ -19,7 +19,7 @@ a nonzero exit:
   3. the render CLI itself (tpugs_torch.apps.render.main), 3 frames at
      1920x1080 of a 1M-gaussian SH-degree-3 PLY, no overflow, every frame
      through all three forward kernels; then each of those kernels timed
-     alone at that frame's shapes beside its bound, its plain version and a
+     at that frame's shapes beside its bound, its plain version and a
      library call, and held against its plain version on the whole frame;
   4. the port's train step (tpugs_torch.train.trainer.make_train_step) at
      the garden shape (1M gaussians, 1297x840, SH 3, tiles of 32): render
@@ -27,7 +27,7 @@ a nonzero exit:
      warm-up and 10 timed steps, each through the five kernels of the
      sorted path, no overflow, finite loss and gradients; then those
      kernels held against their plain versions on step 0's inputs and
-     timed alone there beside their bounds, and the gid sort timed;
+     timed there beside their bounds, and the gid sort timed;
   4b. one garden frame's gradients three ways: the sorted backward, the
      classic branch (SORTED_SEGRED_MIN raised: the entry-major backward
      compositor K4b and the interval segment sum K6) and the scatter-add
@@ -42,11 +42,19 @@ a nonzero exit:
      2^24 - 1M more behind the camera): the classic branch, K4b and K6 once
      per step, K4 and K5 never; 2 warm-up and 5 timed steps, peak memory;
      K4b and K6 held against their plain versions on step 0's inputs
-     (bit-identical) and timed there, K6 beside index_add_;
+     (bit-identical) and timed there, K6 beside torch.segment_reduce,
+     index_add_ and the zeroing of its output, with the lengths of the
+     intervals it summed;
   5. the train CLI (tpugs_torch.apps.train.main, --no-densify) for 20 steps
      on a 4-view 1297x840 GT dataset of a 1M-gaussian model with 1M sparse
      points; finite losses, no overflow left, every step through the sorted
      path's five kernels, and its last checkpoint loads.
+Every kernel is timed twice (CUDA events, 10 launches): as the main path
+calls it, through its wrapper (`ms`), and alone, its C function launched
+again on the same checked inputs into the same outputs (`alone_ms`). The
+align-copy's and the interval sum's wrappers, whose guards run on the card,
+are also called once under torch's sync debug mode, which fails them on any
+host read, and no kernel may have set its guard word by the end.
 Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven,
@@ -55,6 +63,7 @@ then the nvidia-smi line and, only when every phase passed,
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import faulthandler
 import io
@@ -138,6 +147,71 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 def check(cond: bool, what: str):
     if not cond:
         raise AssertionError(what)
+
+
+# One kernel's row: `ms` times the wrapper as the main path calls it
+# (checks, allocation, launch), `alone_ms` the launch alone (below);
+# `lib` names the library call that `lib_ms` times, `extra` holds further
+# numbers of the row (a second yardstick).
+Row = collections.namedtuple(
+    "Row", "name ms alone_ms plain_ms nbytes ops lib_ms lib extra",
+    defaults=(None, None, None))
+
+
+def timed_alone(wrapper_call) -> float:
+    """ms (cuda_ms) of the wrapper's one launch made again through the
+    library's C function, recorded while wrapper_call() runs: the same
+    inputs and outputs, none of the wrapper's checks and no allocation."""
+    from tpugs_torch import cuda_lib
+
+    real = cuda_lib.lib()
+    calls = []
+
+    class Recorder:
+        def __getattr__(self, name):
+            fn = getattr(real, name)
+
+            def call(*args):
+                calls.append((fn, args))
+                return fn(*args)
+
+            return call
+
+    cuda_lib._lib = Recorder()
+    try:
+        keep = wrapper_call()  # owns the outputs the launch writes
+    finally:
+        cuda_lib._lib = real
+    check(len(calls) == 1, f"{len(calls)} library calls, expected 1")
+    fn, args = calls[0]
+
+    def launch():
+        code = fn(*args)
+        if code != 0:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {code} at launch")
+
+    ms = cuda_ms(launch)
+    del keep
+    return ms
+
+
+def without_sync(call, what: str):
+    """call() under torch's sync debug mode "error", which raises on any
+    operation that makes the host wait for the device: the wrapper of a
+    kernel whose guard moved onto the card must not."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings():  # "a prototype feature"
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        return call()
+    except RuntimeError as e:
+        raise AssertionError(f"{what} synchronised with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 # name -> (module under tpugs_torch.ops, wrapper, its launch counter,
@@ -453,13 +527,9 @@ def phase_grad_kernels(dev, errs):
               flush=True)
 
 
-def phase_cli(tmp, dev):
-    """The render CLI at full width; returns the per-frame lines and launch
-    counts of its run."""
-    import numpy as np
-    from PIL import Image
-
-    from tpugs_torch.apps import render as render_app
+def cli_scene(tmp):
+    """The render CLI's scene: CLI_N seeded gaussians of SH degree 3 as a
+    PLY under tmp -> (params, path)."""
     from tpugs_torch.io.ply import write_gaussian_ply_numpy
     from tpugs_torch.utils.synthetic import synthetic_params_numpy
 
@@ -467,12 +537,29 @@ def phase_cli(tmp, dev):
     ply = os.path.join(tmp, "scene_1m_sh3.ply")
     write_gaussian_ply_numpy(ply, p["means"], p["sh"], p["opacity_logits"],
                              p["log_scales"], p["quats"])
-    frames = os.path.join(tmp, "frames")
-    argv = ["-m", ply, "-o", frames, "--frames", str(CLI_FRAMES),
+    return p, ply
+
+
+def cli_argv(ply, frames_dir, frames: int, device: str = "cuda"):
+    """The render CLI's arguments at full width."""
+    return ["-m", ply, "-o", frames_dir, "--frames", str(frames),
             "--width", str(CLI_W), "--height", str(CLI_H),
             "--pair-capacity", str(CLI_PAIR_CAPACITY),
             "--max-hits", str(CLI_MAX_HITS), "--on-overflow", "error",
-            "--device", dev.type]
+            "--device", device]
+
+
+def phase_cli(tmp, dev):
+    """The render CLI at full width; returns the per-frame lines and launch
+    counts of its run."""
+    import numpy as np
+    from PIL import Image
+
+    from tpugs_torch.apps import render as render_app
+
+    p, ply = cli_scene(tmp)
+    frames = os.path.join(tmp, "frames")
+    argv = cli_argv(ply, frames, CLI_FRAMES, dev.type)
     reset_launches()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
@@ -567,17 +654,19 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     errs.setdefault("expand", 0.0)
     itab, ftab, p_out = a1[:3]
     k_ms = cuda_ms(lambda: expand.expand_pairs(*a1))
+    alone_ms = timed_alone(lambda: expand.expand_pairs(*a1))
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*a1), reps=3)
     k1_bytes = itab.numel() * 4 + ftab.numel() * 4 + p_out * 12
     k1_ops = p_out * 16  # index math, clamp, cull per slot
-    rows = [("expand", k_ms, pl_ms, k1_bytes, k1_ops, None)]
+    rows = [Row("expand", k_ms, alone_ms, pl_ms, k1_bytes, k1_ops)]
 
     attr_c, tile_start, astart, counts, pal = a2
-    attr = pack.align_copy(*a2)
+    attr = without_sync(lambda: pack.align_copy(*a2), "align_copy")
     check(torch.equal(attr, pack.align_copy_plain(*a2)),
           f"align-copy differs from its plain version on the {where}")
     errs.setdefault("align_copy", 0.0)
     k_ms = cuda_ms(lambda: pack.align_copy(*a2))
+    alone_ms = timed_alone(lambda: pack.align_copy(*a2))
     pl_ms = cuda_ms(lambda: pack.align_copy_plain(*a2), reps=3)
     # Library yardstick: one index_select of the same columns, gaps pointing
     # at an appended zero column.
@@ -590,12 +679,13 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     check(torch.equal(attr_z.index_select(1, src), attr), "index_select yardstick")
     lib_ms = cuda_ms(lambda: attr_z.index_select(1, src))
     entries = int(counts.sum())
-    rows.append(("align_copy", k_ms, pl_ms, entries * 64 + pal * 64, 0,
-                 lib_ms))
+    rows.append(Row("align_copy", k_ms, alone_ms, pl_ms,
+                    entries * 64 + pal * 64, 0, lib_ms, "index_select"))
 
     cfg = a3[0]
     got = composite_t.composite_forward(*a3)
     k_ms = cuda_ms(lambda: composite_t.composite_forward(*a3))
+    alone_ms = timed_alone(lambda: composite_t.composite_forward(*a3))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = composite_t.composite_forward_plain(*a3)
@@ -622,8 +712,10 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     # and 9 more per contribution.
     k3_ops = 17 * pairs_eval + 9 * int((n_contrib * inside).sum())
     k3_bytes = entries * 36 + cfg.num_tiles * cfg.pix * 24
-    rows.append(("composite_fwd", k_ms, pl_ms, k3_bytes, k3_ops, None))
-    print(f"{where}: {p_out} expand slots, {entries} composited entries, "
+    rows.append(Row("composite_fwd", k_ms, alone_ms, pl_ms, k3_bytes, k3_ops))
+    print(f"{where}: {p_out} expand slots, {entries} composited entries in "
+          f"{counts.shape[0]} tiles (per tile: max {int(counts.max())}, mean "
+          f"{entries / counts.shape[0]:.1f}), "
           f"{pal} aligned columns; expand and align-copy bit-identical to "
           f"their plain versions; compositor max abs err {err:.3g} "
           f"(n_contrib/k_last equal {m_nc:.6f}/{m_kl:.6f}), on 8 tiles incl. "
@@ -726,6 +818,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     cfg, astart, astop, k_last = a4[0], a4[1], a4[2], a4[7]
     got = composite_t.composite_backward(*a4)
     k_ms = cuda_ms(lambda: composite_t.composite_backward(*a4))
+    alone_ms = timed_alone(lambda: composite_t.composite_backward(*a4))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     composite_t.composite_backward_plain(*a4)
@@ -751,7 +844,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     # selects not counted), as csrc/composite_bwd.cu counts them.
     k4_ops = 53 * walked
     k4_bytes = 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24
-    rows = [("composite_bwd", k_ms, pl_ms, k4_bytes, k4_ops, None)]
+    rows = [Row("composite_bwd", k_ms, alone_ms, pl_ms, k4_bytes, k4_ops)]
     print(f"backward compositor on the train frame: {entries} entries, "
           f"{walked} in-image (pixel, entry) pairs to the last contributor; "
           f"bit-identical to its plain version (also on 8 tiles incl. the "
@@ -762,6 +855,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     key, mcols, n_red = sort_args
     got = segreduce.segment_sum_sorted(*a5)
     k_ms = cuda_ms(lambda: segreduce.segment_sum_sorted(*a5))
+    alone_ms = timed_alone(lambda: segreduce.segment_sum_sorted(*a5))
     pl_ms = cuda_ms(lambda: segreduce.segment_sum_sorted_plain(*a5), reps=3)
     sort_ms = cuda_ms(lambda: segreduce.sort_by_key(key, mcols, n_red))
     idx = torch.clamp(key, max=n_red).long()
@@ -773,8 +867,9 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
           f"index_add_ yardstick differs from the segment sum by {lib_err}")
     valid_slots = int(a5[1][-1])
     k5_bytes = 10 * valid_slots * 4 + pack.NUM_ATTR * n_red * 4
-    rows.append(("segreduce", k_ms, pl_ms, k5_bytes,
-                 valid_slots * pack.NUM_ATTR, lib_ms))
+    rows.append(Row("segreduce", k_ms, alone_ms, pl_ms, k5_bytes,
+                    valid_slots * pack.NUM_ATTR, lib_ms,
+                    "index_add_ (output zeroed outside the time)"))
     print(f"segment sum: {valid_slots} valid slots of {key.shape[0]} into "
           f"{n_red} gaussians, bit-identical to its plain version; gid sort "
           f"(torch.sort + column gather) {sort_ms:.4f} ms; index_add_ "
@@ -895,10 +990,11 @@ def expand_carry_row(dev, args, errs, where: str):
     itab, ftab, p_out = args[:3]
     atab = args[7]
     k_ms = cuda_ms(lambda: expand.expand_pairs(*args))
+    alone_ms = timed_alone(lambda: expand.expand_pairs(*args))
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*args), reps=3)
     nbytes = (itab.numel() + ftab.numel() + atab.numel()) * 4 + p_out * 12 \
         + p_out * 36
-    return ("expand_carry", k_ms, pl_ms, nbytes, p_out * 16, None)
+    return Row("expand_carry", k_ms, alone_ms, pl_ms, nbytes, p_out * 16)
 
 
 def phase_carry(dev, cli_params, errs):
@@ -1051,7 +1147,8 @@ def phase_large_scene(dev, errs):
 def classic_kernel_rows(dev, a4b, a6, errs):
     """K4b and K6 on the inputs a 2^24 train step gave them: each held
     against its plain version (bit-identical) and timed beside it, K6 also
-    beside index_add_ of the same gaussian-major rows."""
+    beside torch.segment_reduce and index_add_ of the same gaussian-major
+    rows."""
     import torch
 
     from tpugs_torch.ops import composite_t, pack, segreduce
@@ -1070,41 +1167,77 @@ def classic_kernel_rows(dev, a4b, a6, errs):
     errs["composite_bwd_entry"] = max(errs.get("composite_bwd_entry", 0.0), err4)
     k_ms = cuda_ms(lambda: composite_t.composite_backward(
         *a4b, transposed_out=False))
+    alone_ms = timed_alone(lambda: composite_t.composite_backward(
+        *a4b, transposed_out=False))
     entries = int((astop - astart).long().sum())
     walked = int(((k_last.long() + 1) * in_image(cfg, dev)).sum())
-    rows = [("composite_bwd_entry", k_ms, pl_ms,
-             2 * entries * 36 + cfg.num_tiles * cfg.pix * 24, 53 * walked,
-             None)]
+    rows = [Row("composite_bwd_entry", k_ms, alone_ms, pl_ms,
+                2 * entries * 36 + cfg.num_tiles * cfg.pix * 24, 53 * walked)]
 
     d_rows, red_start, red_count, exp_end, n = a6
-    got = segreduce.segment_reduce(*a6)
+    got = without_sync(lambda: segreduce.segment_reduce(*a6), "segment_reduce")
     err6 = float((got - segreduce.segment_reduce_plain(
         d_rows, red_start, red_count, n)).abs().max())
     check(err6 == 0.0, f"K6 differs from its plain version by {err6}")
     errs["segreduce_interval"] = err6
     k_ms = cuda_ms(lambda: segreduce.segment_reduce(*a6))
+    alone_ms = timed_alone(lambda: segreduce.segment_reduce(*a6))
     pl_ms = cuda_ms(lambda: segreduce.segment_reduce_plain(
         d_rows, red_start, red_count, n), reps=3)
-    # Library yardstick: index_add_ of the same rows by their gaussian.
-    gid = torch.repeat_interleave(torch.arange(n, device=dev),
-                                  red_count.long())
-    lib_rows = d_rows[:exp_end]
+    # The intervals the step fed K6: how long they run.
+    length = red_count.long()
+    nonempty = torch.sort(length[length > 0]).values
+    q = [int(nonempty[int(f * (nonempty.shape[0] - 1))])
+         for f in (0.5, 0.99, 0.999)]
+    longer = {t: int((length > t).sum()) for t in (8, 16, 32, 64, 128)}
+    empty = float((length == 0).float().mean())
+    print(f"K6 intervals at 2^24: {n} gaussians, {empty:.6f} empty; "
+          f"non-empty lengths median {q[0]}, 99th pct {q[1]}, "
+          f"99.9th pct {q[2]}, max {int(length.max())}; longer than "
+          f"{longer}", flush=True)
+    # Library yardsticks. torch.segment_reduce computes K6's function, zeros
+    # included, where the intervals partition [0, exp_end) (the main
+    # path's: binning.reduce_intervals); index_add_ by each row's gaussian
+    # adds the same rows but excludes zeroing its output and expanding the
+    # gaussian ids, so it is printed beside it.
+    contiguous = bool((red_start[1:] == red_start[:-1] + red_count[:-1]).all()) \
+        and int(red_start[0]) == 0 and int(length.sum()) == exp_end
+    check(contiguous, "the 2^24 step's intervals do not partition [0, exp_end)")
+    seg_rows = d_rows[:exp_end]
+    seg = torch.segment_reduce(seg_rows, "sum", lengths=red_count, axis=0)
+    seg_err = float((seg.T - got).abs().max())
+    check(seg_err <= 1e-4 * float(got.abs().max()),
+          f"torch.segment_reduce yardstick differs from K6 by {seg_err}")
+    lib_ms = cuda_ms(lambda: torch.segment_reduce(seg_rows, "sum",
+                                                  lengths=red_count, axis=0))
+    gid = torch.repeat_interleave(torch.arange(n, device=dev), length)
     acc = torch.zeros((n, pack.NUM_ATTR), device=dev)
-    lib_ms = cuda_ms(lambda: acc.index_add_(0, gid, lib_rows))
-    lib = torch.zeros_like(acc).index_add_(0, gid, lib_rows).T
+    add_ms = cuda_ms(lambda: acc.index_add_(0, gid, seg_rows))
+    lib = torch.zeros_like(acc).index_add_(0, gid, seg_rows).T
     lib_err = float((lib - got).abs().max())
     check(lib_err <= 1e-4 * float(got.abs().max()),
           f"index_add_ yardstick differs from K6 by {lib_err}")
-    slots = int(red_count.long().sum())
-    rows.append(("segreduce_interval", k_ms, pl_ms,
-                  slots * 36 + n * 8 + n * 36, slots * pack.NUM_ATTR, lib_ms))
+    # The floor of K6's stores: zeroing its [9, n] output alone.
+    blank = torch.empty_like(got)
+    memset_ms = cuda_ms(blank.zero_)
+    slots = int(length.sum())
+    rows.append(Row("segreduce_interval", k_ms, alone_ms, pl_ms,
+                    slots * 36 + n * 8 + n * 36, slots * pack.NUM_ATTR, lib_ms,
+                    "torch.segment_reduce",
+                    {"index_add_ms": add_ms,
+                     "index_add": "excludes zeroing its output and the gid "
+                                  "expansion",
+                     "memset_ms": memset_ms,
+                     "memset": "zeroing the [9, n] output alone"}))
     print(f"classic kernels at 2^24: K4b on {entries} entries, {walked} "
           f"in-image (pixel, entry) pairs, bit-identical to its plain version; "
           f"K6 over {slots} slots of {exp_end} into {n} gaussians, "
-          f"bit-identical; index_add_ {lib_ms:.4f} ms (max abs diff "
-          f"{lib_err:.3g})", flush=True)
+          f"bit-identical; torch.segment_reduce {lib_ms:.4f} ms (max abs diff "
+          f"{seg_err:.3g}); index_add_ {add_ms:.4f} ms without zeroing its "
+          f"output or expanding the ids (max abs diff {lib_err:.3g}); "
+          f"zeroing the output alone {memset_ms:.4f} ms",
+          flush=True)
     return rows
-
 
 
 def phase_train_cli(tmp, dev):
@@ -1196,28 +1329,32 @@ def bound(nbytes: int, ops: int):
 
 
 def print_rows(rows, where: str):
-    for name, ms, plain_ms, nbytes, ops, lib_ms in rows:
-        bound_ms, bound_by = bound(nbytes, ops)
-        print(f"{where} {name}: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}), plain {plain_ms:.2f} ms, library "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}", flush=True)
+    for r in rows:
+        bound_ms, bound_by = bound(r.nbytes, r.ops)
+        lib = "n/a" if r.lib_ms is None else f"{r.lib_ms:.4f} ms ({r.lib})"
+        print(f"{where} {r.name}: {r.ms:.4f} ms as called, {r.alone_ms:.4f} "
+              f"ms alone, bound {bound_ms:.4f} ms ({bound_by}), plain "
+              f"{r.plain_ms:.2f} ms, library {lib}"
+              + "".join(f", {k} {v:.4f}" for k, v in (r.extra or {}).items()
+                        if isinstance(v, float)), flush=True)
 
 
 def kernel_table(rows, errs, launches_by_path):
     """The {"kernels": [...]} entries, one per row: each kernel's launches
     on its own slice's main path (MAIN_PATH) and on every path driven, its
-    times, bound and library time."""
+    times (as called and alone), bound and library time."""
     table = []
-    for name, ms, plain_ms, nbytes, ops, lib_ms in rows:
-        bound_ms, bound_by = bound(nbytes, ops)
+    for r in rows:
+        bound_ms, bound_by = bound(r.nbytes, r.ops)
         table.append({
-            "name": name, "route": "cuda", "source": KERNELS[name][3],
-            "replaces": KERNELS[name][4],
-            "launches": launches_by_path[MAIN_PATH[name]][name],
-            "launches_by_path": {path: counts[name] for path, counts
+            "name": r.name, "route": "cuda", "source": KERNELS[r.name][3],
+            "replaces": KERNELS[r.name][4],
+            "launches": launches_by_path[MAIN_PATH[r.name]][r.name],
+            "launches_by_path": {path: counts[r.name] for path, counts
                                  in launches_by_path.items()},
-            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "max_abs_err": errs[r.name], "ms": r.ms, "alone_ms": r.alone_ms,
+            "plain_ms": r.plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": r.lib_ms, "library": r.lib, **(r.extra or {}),
         })
     check(sorted(r["name"] for r in table) == sorted(KERNELS),
           "the kernels line misses a kernel")
@@ -1228,6 +1365,8 @@ def main() -> int:
     with Phase("device", 90):
         card = phase_device()
     import torch
+
+    from tpugs_torch import cuda_lib
 
     dev = torch.device("cuda", 0)
     with Phase("build", 240):
@@ -1257,6 +1396,8 @@ def main() -> int:
             print_rows(large_rows, "2^24 train frame")
         with Phase("train-cli", 900):
             train_cli_launches = phase_train_cli(tmp, dev)
+    torch.cuda.synchronize()
+    cuda_lib.check_guards()  # no kernel found its inputs out of contract
     table = kernel_table(rows + large_rows + carry_rows, errs, {
         "train_step": step_launches, "large_train_step": large_launches,
         "carry_train_frame": carry_launches,

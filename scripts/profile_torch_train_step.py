@@ -75,6 +75,43 @@ def stage_marks(trainer_mod, marks: list):
             setattr(trainer_mod, name, fn)
 
 
+def train_setup(dev, n_total: int = N):
+    """The profiled step and its first state: make_train_step at the
+    garden shape on N seeded gaussians, padded behind the camera up to
+    n_total. Returns (step(state, t) -> (state, stats), state)."""
+    import torch
+
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_step)
+    from tpugs_torch.utils.synthetic import (pad_behind_camera,
+                                             synthetic_intrinsics_numpy,
+                                             synthetic_params)
+
+    cfg = RasterConfig(img_h=H, img_w=W, tile_h=32, tile_w=32,
+                       pair_capacity=PAIR_CAPACITY, max_hits_per_tile=MAX_HITS)
+    params = synthetic_params(N, seed=0, device=dev, scale_range=(0.002, 0.015))
+    if n_total > N:
+        params = pad_behind_camera(params, n_total)
+    state = TrainState(
+        params=params, alive=torch.ones(n_total, dtype=torch.bool, device=dev),
+        adam=adam_init(params), adc=adc_init(n_total, dev),
+        key=initial_key(0))
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    viewmat = torch.eye(4, device=dev)
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(W, H)).to(dev)
+    target = torch.rand((H, W, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+
+    def step(state, t):
+        return train_step(state, target, viewmat, intr,
+                          torch.tensor(float(t)), 3)
+
+    return step, state
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/profile")
@@ -90,36 +127,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from tpugs_torch.ops.render import RasterConfig
-    from tpugs_torch.optim.adam import adam_init
-    from tpugs_torch.optim.densify_adc import adc_init
-    from tpugs_torch.train import trainer as trainer_mod
-    from tpugs_torch.utils.synthetic import (pad_behind_camera,
-                                             synthetic_intrinsics_numpy,
-                                             synthetic_params)
-
     dev = torch.device("cuda", 0)
-    cfg = RasterConfig(img_h=H, img_w=W, tile_h=32, tile_w=32,
-                       pair_capacity=PAIR_CAPACITY, max_hits_per_tile=MAX_HITS)
-    params = synthetic_params(N, seed=0, device=dev, scale_range=(0.002, 0.015))
-    n = args.n_total
-    if n > N:
-        params = pad_behind_camera(params, n)
+    from tpugs_torch.train import trainer as trainer_mod
+
     torch.cuda.reset_peak_memory_stats()
-    state = trainer_mod.TrainState(
-        params=params, alive=torch.ones(n, dtype=torch.bool, device=dev),
-        adam=adam_init(params), adc=adc_init(n, dev),
-        key=trainer_mod.initial_key(0))
-    train_step = trainer_mod.make_train_step(
-        trainer_mod.TrainConfig(densify_mode="none"), cfg)
-    viewmat = torch.eye(4, device=dev)
-    intr = torch.from_numpy(synthetic_intrinsics_numpy(W, H)).to(dev)
-    target = torch.rand((H, W, 3), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(0))
+    n = args.n_total
+    train_step, state = train_setup(dev, n)
 
     def step(state, t):
-        return train_step(state, target, viewmat, intr,
-                          torch.tensor(float(t)), 3)[0]
+        return train_step(state, t)[0]
 
     t = 0
     for _ in range(WARMUP):

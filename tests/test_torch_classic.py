@@ -103,14 +103,18 @@ def _huge(seed):
     return start, count, 11 + span
 
 
-@pytest.mark.parametrize("case", ["short", "two", "long", "huge", "empty"])
+@pytest.mark.parametrize("case", ["short", "two", "long", "huge", "empty",
+                                  "odd_n"])
 def test_interval_sum_matches_pallas_kernel(case):
     if case == "huge":
         start, count, end = _huge(3)
     elif case == "empty":
         start, count, end = np.zeros(256, np.int32), np.zeros(256, np.int32), 0
     else:
-        n, span = {"short": (256, 4), "two": (640, 2), "long": (128, 40)}[case]
+        # odd_n: n not a multiple of 4 or of a warp, intervals of tens of
+        # slots.
+        n, span = {"short": (256, 4), "two": (640, 2), "long": (128, 40),
+                   "odd_n": (203, 34)}[case]
         start, count, end = _intervals(0, n, span)
     n = start.shape[0]
     p_in = -(-(end + J_CHUNK) // J_CHUNK) * J_CHUNK
@@ -131,11 +135,29 @@ def test_interval_sum_matches_pallas_kernel(case):
     assert not got[:, count == 0].any()  # empty intervals sum to zero
 
 
-def test_interval_sum_plain_adds_in_slot_order():
+@pytest.mark.parametrize("length", [3, 40, 100])
+def test_interval_sum_plain_adds_in_slot_order(length):
+    """segment_reduce_plain adds each interval one slot after another from
+    zero, as the kernel's thread does (csrc/segreduce.cu), whatever its
+    length; a pairwise or lane-split sum would not match bit for bit on
+    these magnitudes."""
+    rng = np.random.default_rng(length)
+    rows = (rng.normal(0, 1, (3 * length + 5, TP.NUM_ATTR))
+            * 10.0 ** rng.uniform(-3, 7, (3 * length + 5, 1))).astype(np.float32)
+    start = np.int32([0, length, length + 2, 2 * length + 2])
+    count = np.int32([length, 2, 0, length])
+    got = np_(TS.segment_reduce_plain(torch.from_numpy(rows),
+                                      torch.from_numpy(start),
+                                      torch.from_numpy(count), 4))
+    for g in range(4):
+        acc = np.zeros(TP.NUM_ATTR, np.float32)
+        for r in rows[start[g]:start[g] + count[g]]:
+            acc = acc + r
+        np.testing.assert_array_equal(got[:, g], acc)
+    # Interval 0 is ((0 + 1e8) + 1) - 1e8 in f32 = 0: slot order, from zero.
     rows = torch.tensor([[1e8], [1.0], [-1e8], [3.0], [5.0]]).repeat(1, TP.NUM_ATTR)
     got = TS.segment_reduce_plain(rows, torch.tensor([0, 3, 3], dtype=torch.int32),
                                   torch.tensor([3, 0, 2], dtype=torch.int32), 3)
-    # Interval 0 is ((0 + 1e8) + 1) - 1e8 in f32 = 0: slot order, from zero.
     np.testing.assert_array_equal(np_(got)[0], np.float32([0.0, 0.0, 8.0]))
 
 

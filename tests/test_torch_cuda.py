@@ -7,6 +7,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpugs_torch import cuda_lib
 from tpugs_torch.core.gaussians import params_from_numpy
 from tpugs_torch.ops import binning as TB
 from tpugs_torch.ops import composite_t, expand, pack, segreduce
@@ -74,6 +75,195 @@ def test_align_copy_and_compositor(dev, tile):
         np.testing.assert_allclose(np_(a), np_(r), atol=1e-5)
     for a, r in zip(got[2:], ref[2:]):
         assert (a == r).float().mean() >= 0.999
+
+
+def _layout(seed, num_tiles, big, empty, extra_cols):
+    """A synthetic align-copy input: compact segments with gaps between
+    them, a share `empty` of empty tiles, one tile of `big` entries, and an
+    output `extra_cols` past the last tile's padded end."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    counts = torch.randint(0, 300, (num_tiles,), generator=g, dtype=torch.int32)
+    counts[torch.rand(num_tiles, generator=g) < empty] = 0
+    counts[num_tiles // 3] = big
+    gaps = torch.randint(0, 5, (num_tiles,), generator=g, dtype=torch.int32)
+    tile_start = (torch.cumsum(counts + gaps, 0) - counts).int()
+    attr_c = torch.randn((pack.ATTR_ROWS, int(tile_start[-1] + counts[-1]) + 3),
+                         generator=g)
+    stop = tile_start + counts
+    astart, _, counts = pack.aligned_offsets(tile_start, stop)
+    pal = pack.aligned_length(astart, counts) + extra_cols
+    return attr_c, tile_start, astart, counts, pal
+
+
+@pytest.mark.parametrize("num_tiles,big,empty,extra_cols", [
+    (3000, 8192, 0.3, 0),  # more than two waves of the one-block-per-tile
+    #                         design, one 8,192-entry tile
+    (2040, 22848, 0.0, 0),  # the render frame's busiest tile
+    (500, 8192, 0.95, 5),  # mostly empty tiles; rows not 16-byte aligned
+    (7, 1, 0.0, 131),  # a few tiles and a zero tail past the last one
+])
+def test_align_copy_layouts_bit_identical(dev, num_tiles, big, empty,
+                                          extra_cols):
+    """K2 against its plain version on layouts the render frames do not
+    all reach: every output column, gaps and tail included."""
+    args = _layout(num_tiles, num_tiles, big, empty, extra_cols)
+    on_card = [a.to(dev) if isinstance(a, torch.Tensor) else a for a in args]
+    got = pack.align_copy(*on_card)
+    assert torch.equal(got.cpu(), pack.align_copy_plain(*args))
+    cuda_lib.check_guards()
+
+
+@pytest.mark.parametrize("case", ["interval past exp_end",
+                                  "interval before 0",
+                                  "segment past attr_c",
+                                  "segment past p_aligned",
+                                  "segment off the 128 grid"])
+def test_contract_violation_raises(dev, case):
+    """K6 and K2 check their inputs' contract on the card instead of
+    reading them back: a violation is not read or written past, and raises
+    at the next check once the stream has passed the kernel."""
+    if case.startswith("interval"):
+        start = torch.tensor([0, 2, 5, 5, 9], dtype=torch.int32)
+        count = torch.tensor([2, 3, 0, 4, 2], dtype=torch.int32)
+        if case == "interval before 0":
+            start[1] = -1
+        else:
+            count[4] = 3  # 9 + 3 > 11
+        rows = torch.randn((12, pack.NUM_ATTR))
+        launches = segreduce.segment_reduce.launches
+        got = segreduce.segment_reduce(rows.to(dev), start.to(dev),
+                                       count.to(dev), 11, 5)
+        bad = 1 if case == "interval before 0" else 4
+        what = f"gaussian {bad} has an interval"
+        assert segreduce.segment_reduce.launches == launches + 1
+        torch.cuda.synchronize()
+        ok = torch.arange(5) != bad
+        ref = segreduce.segment_reduce_plain(rows, start, count, 5)
+        assert torch.equal(got.cpu()[:, ok], ref[:, ok])
+        assert torch.isnan(got[:, bad]).all()
+    else:
+        attr_c, tile_start, astart, counts, pal = _layout(1, 40, 300, 0.2, 0)
+        bad = 17
+        if case == "segment past attr_c":
+            tile_start[bad] = attr_c.shape[1] - 2
+            counts[bad] = max(int(counts[bad]), 5)
+        elif case == "segment past p_aligned":
+            bad = 39
+            pal -= 1
+        else:
+            astart[bad] += 4
+        what = f"tile {bad} has a segment"
+        pack.align_copy(attr_c.to(dev), tile_start.to(dev), astart.to(dev),
+                        counts.to(dev), pal)
+        torch.cuda.synchronize()
+    with pytest.raises(ValueError, match=what):
+        cuda_lib.check_guards()
+    cuda_lib.check_guards()  # the word was cleared
+
+
+@pytest.mark.parametrize("kernel", ["align_copy", "segment_reduce"])
+def test_wrapper_makes_no_host_read(dev, kernel):
+    """K2's and K6's wrappers check their inputs' contract on the card: a
+    call makes the host wait for the device nowhere (torch's sync debug
+    mode raises where an operation would)."""
+    if kernel == "align_copy":
+        args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+                for a in _layout(2, 300, 8192, 0.2, 0)]
+        call = lambda: pack.align_copy(*args)
+    else:
+        rows = torch.randn((64, pack.NUM_ATTR), device=dev)
+        iv = torch.arange(0, 64, 4, dtype=torch.int32, device=dev)
+        call = lambda: segreduce.segment_reduce(rows, iv, torch.full_like(iv, 4),
+                                                64, 16)
+    call()  # built and loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    cuda_lib.check_guards()
+
+
+def test_contract_violation_raises_at_the_next_launch(dev):
+    """After a synchronising read, the next launch of any kernel of the
+    library reports an earlier launch's violation, before it launches."""
+    rows = torch.randn((4, pack.NUM_ATTR), device=dev)
+    iv = torch.tensor([0, 2], dtype=torch.int32, device=dev)
+    segreduce.segment_reduce(rows, iv, iv + 1, 3, 2)  # 2 + 3 > 3
+    torch.cuda.synchronize()
+    launches = pack.align_copy.launches
+    args = [a.to(dev) if isinstance(a, torch.Tensor) else a
+            for a in _layout(3, 20, 100, 0.2, 0)]
+    with pytest.raises(ValueError, match="gaussian 1 has an interval"):
+        pack.align_copy(*args)
+    assert pack.align_copy.launches == launches
+    pack.align_copy(*args)  # the word was cleared
+    torch.cuda.synchronize()
+    cuda_lib.check_guards()
+
+
+def test_render_cli_raises_on_a_violation_in_its_last_frame(dev, monkeypatch,
+                                                            tmp_path):
+    """The align-copy of the render CLI's one and last frame gets a tile
+    start off the 128 grid: the CLI raises and writes no frame."""
+    from tpugs_torch.apps import render as render_app
+    from tpugs_torch.io.ply import write_gaussian_ply_numpy
+
+    real = pack.align_copy
+
+    def off_grid(attr_c, tile_start, astart, counts, p_aligned):
+        astart = astart.clone()
+        astart[-1] += 4
+        return real(attr_c, tile_start, astart, counts, p_aligned)
+
+    off_grid.launches = 0  # the real wrapper counts on the module's name
+    monkeypatch.setattr(pack, "align_copy", off_grid)
+    p = synthetic_params_numpy(3000, seed=2)
+    ply = tmp_path / "m.ply"
+    write_gaussian_ply_numpy(ply, p["means"], p["sh"], p["opacity_logits"],
+                             p["log_scales"], p["quats"])
+    with pytest.raises(ValueError, match="tpugs_align_copy: .*has a segment"):
+        render_app.main(["-m", str(ply), "-o", str(tmp_path / "f"),
+                         "--frames", "1", "--width", "160", "--height", "96",
+                         "--pair-capacity", str(1 << 18), "--max-hits", "4096"])
+    assert off_grid.launches == 1
+    assert not (tmp_path / "f" / "frame_0000.png").exists()
+
+
+def test_trainer_raises_on_a_violation_in_its_last_step(dev, monkeypatch,
+                                                        tmp_path):
+    """The interval segment sum of the Trainer's one and last step (the
+    classic backward) gets an interval before slot 0. No kernel of the
+    library launches after it in that run: the Trainer's own read of the
+    guard words raises, before it logs or saves a checkpoint."""
+    from tpugs_torch.ops import composite
+    from tpugs_torch.train.trainer import TrainConfig, Trainer
+    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
+
+    real = segreduce.segment_reduce
+
+    def before_zero(rows, red_start, red_count, exp_end, n):
+        red_start = red_start.clone()
+        red_start[0] = -1
+        return real(rows, red_start, red_count, exp_end, n)
+
+    before_zero.launches = 0  # the real wrapper counts on the module's name
+    monkeypatch.setattr(composite, "SORTED_SEGRED_MIN", 1 << 62)
+    monkeypatch.setattr(segreduce, "segment_reduce", before_zero)
+    root = str(tmp_path / "gt")
+    write_gt_dataset(root, make_gt_model(500, seed=0, device="cpu"),
+                     num_views=4, width=64, height=48, sparse_points=200)
+    out = tmp_path / "o"
+    tr = Trainer(root, TrainConfig(iterations=1, log_every=1, save_every=0,
+                                   densify_mode="none", tile_h=16, tile_w=16,
+                                   output_dir=str(out)),
+                 log_fn=lambda *_: None, device="cuda")
+    with pytest.raises(ValueError, match="tpugs_segreduce_interval: .*gaussian 0"):
+        tr.train(1)
+    assert before_zero.launches == 1
+    assert not list(out.glob("model_*")) and not list(out.glob("ckpt_*"))
 
 
 def test_render_on_card_matches_cpu(dev):
@@ -192,20 +382,36 @@ def test_entry_major_backward_kernel_bit_identical(dev, tile):
     assert torch.equal(got[valid], composite_t.composite_backward(*args).T[valid])
 
 
-@pytest.mark.parametrize("n,span", [(20_000, 3), (300, 400), (64, 0)])
-def test_interval_sum_kernel_bit_identical(dev, n, span):
+@pytest.mark.parametrize("n,span,empty,offset", [
+    (20_000, 3, 0.0, 0), (300, 400, 0.0, 0), (64, 0, 0.0, 0),
+    (20_003, 3, 0.0, 1),  # n not a multiple of the warp or of 4; starts
+    #                       and counts at an odd address
+    (1 << 20, 2, 0.94, 0),  # mostly empty, as at 2^24: all-empty warps
+    (4_001, 40, 0.5, 0),  # short and long intervals, half of them empty
+    (33, 3000, 0.0, 3),  # only long ones, past 2,597 slots
+])
+def test_interval_sum_kernel_bit_identical(dev, n, span, empty, offset):
     """K6 against its plain version: intervals with gaps, empty ones, and
-    (span 400) long ones."""
+    long ones."""
     g = torch.Generator(device="cpu").manual_seed(n)
     count = torch.poisson(torch.full((n,), float(span)), generator=g).int()
     count[::5] = 0
+    if empty:
+        count[torch.rand(n, generator=g) < empty] = 0
     gaps = torch.randint(0, 3, (n,), generator=g, dtype=torch.int32)
     start = (torch.cumsum(count + gaps, 0) - count).int()
     end = int(start[-1] + count[-1]) if n else 0
     rows = torch.randn((end + 7, pack.NUM_ATTR), generator=g)
-    args = (rows.to(dev), start.to(dev), count.to(dev), end, n)
+
+    def on_card(t):  # `offset` elements into a buffer: an unaligned start
+        buf = torch.zeros(t.numel() + offset, dtype=t.dtype, device=dev)
+        buf[offset:] = t.to(dev)
+        return buf[offset:]
+
+    args = (rows.to(dev), on_card(start), on_card(count), end, n)
     got = segreduce.segment_reduce(*args)
     assert torch.equal(got, segreduce.segment_reduce_plain(*args[:3], n))
+    cuda_lib.check_guards()
     ref = torch.zeros((pack.NUM_ATTR, n), dtype=torch.float64)
     seg = torch.repeat_interleave(torch.arange(n), count.long())
     slots = torch.cat([torch.arange(s, s + c) for s, c in

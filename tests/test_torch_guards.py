@@ -3,6 +3,7 @@ refuse to fall back to the CPU, its kernel wrappers send CPU tensors to the
 plain versions and never swallow an error, its build raises with nvcc's
 message, and what is not yet ported raises instead of doing nothing."""
 import ast
+import ctypes
 import pathlib
 import subprocess
 import sys
@@ -247,6 +248,30 @@ def test_wrapper_rejects_wrong_inputs():
         segreduce.segment_reduce(rows, iv, iv, 65, 4)
 
 
+@pytest.mark.parametrize("k,name,what", [
+    (0, "tpugs_align_copy", "tile 6 has a segment"),
+    (1, "tpugs_segreduce_interval", "gaussian 6 has an interval"),
+])
+def test_guard_word_raises_before_the_next_launch(monkeypatch, k, name, what):
+    """A kernel that finds its inputs out of contract sets its guard word
+    (mapped host memory, here a plain array): the library raises on it
+    before the next launch, names the kernel and the item, and clears it."""
+    words = (ctypes.c_int * len(cuda_lib.GUARDED))()
+    monkeypatch.setattr(cuda_lib, "_guard_host", words)
+    monkeypatch.setattr(cuda_lib, "_lib", "loaded")
+    assert list(cuda_lib.GUARDED)[k] == name
+    assert cuda_lib.lib() == "loaded"
+    words[k] = 7
+    with pytest.raises(ValueError, match=f"{name}: .*{what}"):
+        cuda_lib.lib()
+    assert list(words) == [0] * len(cuda_lib.GUARDED)
+    assert cuda_lib.lib() == "loaded"
+    words[k] = 7
+    with pytest.raises(ValueError, match=what):
+        cuda_lib.check_guards()
+    cuda_lib.check_guards()
+
+
 def test_launch_error_code_raises():
     cuda_lib.check("tpugs_expand", 0)
     with pytest.raises(RuntimeError, match="CUDA error 9"):
@@ -268,11 +293,13 @@ def test_build_command_and_key():
     srcs = cuda_lib.sources()
     assert {s.name for s in srcs} == {"expand.cu", "align_copy.cu",
                                       "composite_fwd.cu", "composite_bwd.cu",
-                                      "segreduce.cu"}
+                                      "segreduce.cu", "guard_words.cu"}
     for s in srcs:
         text = s.read_text()
         assert "torch/extension.h" not in text and 'extern "C"' in text
-        assert "Replaces: tpugs/ops/pallas/" in text and "Bound on the H100" in text
+        if s.name != "guard_words.cu":  # the guard words' allocator, no kernel
+            assert "Replaces: tpugs/ops/pallas/" in text
+            assert "Bound on the H100" in text
     path = cuda_lib.library_path()
     assert path.parent.parent == cuda_lib.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in cuda_lib.ARCH_FLAGS
@@ -280,7 +307,9 @@ def test_build_command_and_key():
                                         "tpugs_composite_fwd",
                                         "tpugs_composite_bwd",
                                         "tpugs_segreduce_sorted",
-                                        "tpugs_segreduce_interval"}
+                                        "tpugs_segreduce_interval",
+                                        "tpugs_guard_words"}
+    assert cuda_lib.SIGNATURES["tpugs_guard_words"][0] is ctypes.c_int
 
 
 
@@ -351,6 +380,70 @@ def test_trainer_refuses_eval_every_before_any_step(tmp_path):
         Trainer(root, cfg, log_fn=lambda *_: pytest.fail("trained"),
                 device="cpu")
     assert not out.exists()
+
+
+def _guard_on_call(monkeypatch, module, name: str, k: int) -> list:
+    """Guard words as plain host memory, and module.name wrapped to set
+    word k after each call, as its kernel does when it finds its inputs out
+    of contract; returns the list of its calls."""
+    words = (ctypes.c_int * len(cuda_lib.GUARDED))()
+    monkeypatch.setattr(cuda_lib, "_guard_host", words)
+    real, calls = getattr(module, name), []
+
+    def call(*args, **kw):
+        out = real(*args, **kw)
+        words[k] = 1
+        calls.append(name)
+        return out
+
+    monkeypatch.setattr(module, name, call)
+    return calls
+
+
+def test_render_cli_raises_on_a_violation_in_its_last_frame(monkeypatch,
+                                                            tmp_path):
+    """The align-copy of the render CLI's one and last frame finds its
+    inputs out of contract: the offline renderer reads the guard words once
+    the frame's kernels have run, so the CLI raises and writes no frame."""
+    from tpugs_torch.io.ply import write_gaussian_ply_numpy
+    from tpugs_torch.utils.synthetic import synthetic_params_numpy
+
+    calls = _guard_on_call(monkeypatch, pack, "align_copy", 0)
+    p = synthetic_params_numpy(20, seed=0)
+    ply = tmp_path / "m.ply"
+    write_gaussian_ply_numpy(ply, p["means"], p["sh"], p["opacity_logits"],
+                             p["log_scales"], p["quats"])
+    with pytest.raises(ValueError, match="tpugs_align_copy: .*tile 0 has"):
+        render_app.main(["-m", str(ply), "-o", str(tmp_path / "f"),
+                         "--frames", "1", "--width", "32", "--height", "32",
+                         "--device", "cpu"])
+    assert calls == ["align_copy"]
+    assert not (tmp_path / "f" / "frame_0000.png").exists()
+
+
+def test_trainer_raises_on_a_violation_in_its_last_step(monkeypatch,
+                                                        tmp_path):
+    """The interval segment sum of the Trainer's one and last step (the
+    classic backward, SORTED_SEGRED_MIN raised) finds its inputs out of
+    contract: the Trainer reads the guard words after the block's stats,
+    so it raises before it logs or saves a checkpoint."""
+    from tpugs_torch.ops import composite
+    from tpugs_torch.train.trainer import TrainConfig, Trainer
+
+    monkeypatch.setattr(composite, "SORTED_SEGRED_MIN", 1 << 62)
+    calls = _guard_on_call(monkeypatch, segreduce, "segment_reduce", 1)
+    root, _ = _train_scene(tmp_path)
+    out = tmp_path / "o"
+    tr = Trainer(root, TrainConfig(iterations=1, capacity=32, sh_degree=0,
+                                   log_every=1, save_every=0,
+                                   densify_mode="none", pair_capacity=4096,
+                                   max_hits_per_tile=64, output_dir=str(out)),
+                 log_fn=lambda *_: None, device="cpu")
+    with pytest.raises(ValueError, match="tpugs_segreduce_interval: .*gaussian 0"):
+        tr.train(1)
+    assert calls == ["segment_reduce"]
+    assert not list(out.glob("model_*")) and not list(out.glob("ckpt_*"))
+    assert (out / "history.jsonl").read_text() == ""
 
 
 def test_forward_only_render_builds_no_graph():

@@ -13,6 +13,19 @@ loaded with `ctypes`: every pointer and the CUDA stream go over as
 `c_void_p`, every count as `c_int` or `c_longlong`. Each exported function
 launches on the stream it is given and returns `cudaGetLastError()`;
 `check` turns a nonzero code into an exception.
+
+Guard words: a kernel that checks its inputs' contract on the device (the
+align-copy, the interval segment sum) stores a nonzero value into its
+word of mapped pinned host memory (csrc/guard_words.cu, one word per
+entry of GUARDED) when they break it, and never reads or writes outside
+its buffers. `check_guards` reads the words on the host, which does not
+synchronise the device, and raises on a set one. `lib()`, which every
+wrapper calls before its launch, calls it, so a violation raises at the
+first launch after the stream has passed the kernel that found it, never
+inside the launching call itself. A caller whose unit of work ends in a
+synchronising host read calls it there too, so that the last launch of a
+run is covered: the offline renderer after each frame, the Trainer after
+each block of steps.
 """
 from __future__ import annotations
 
@@ -39,16 +52,28 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "tpugs_expand": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
-    "tpugs_align_copy": [_I, _P, _L, _P, _P, _P, _I, _P, _L, _P],
+    "tpugs_align_copy": [_I, _P, _L, _P, _P, _P, _I, _P, _L, _P, _P],
     "tpugs_composite_fwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P],
     "tpugs_composite_bwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                             _P, _P, _P, _I, _P],
     "tpugs_segreduce_sorted": [_I, _P, _L, _P, _I, _P, _P],
-    "tpugs_segreduce_interval": [_I, _P, _P, _P, _I, _P, _P],
+    "tpugs_segreduce_interval": [_I, _P, _P, _P, _I, _L, _P, _P, _P],
+    "tpugs_guard_words": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P)],
+}
+# The kernels with a guard word, in the order of the words, and what a set
+# word (item + 1) says.
+GUARDED = {
+    "tpugs_align_copy": "tile {} has a segment that reads past attr_c, "
+                        "writes past p_aligned or into the next tile's, or "
+                        "does not start on a 128-column boundary",
+    "tpugs_segreduce_interval": "gaussian {} has an interval outside "
+                                "[0, exp_end)",
 }
 
 _lib = None
+_guard_host = None  # the guard words, read on the host
+_guard_device = 0  # their device address
 build_seconds: float | None = None  # wall time of this process's build
 build_log: str = ""  # nvcc's stderr (ptxas register and spill report)
 
@@ -104,16 +129,41 @@ def build() -> Path:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded library, built on first call."""
-    global _lib
+    """The loaded library, built on first call, with its guard words;
+    raises first if an earlier launch set one (check_guards)."""
+    global _lib, _guard_host, _guard_device
+    check_guards()
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        host, device = _P(), _P()
+        check("tpugs_guard_words", handle.tpugs_guard_words(
+            len(GUARDED), ctypes.byref(host), ctypes.byref(device)))
+        _guard_host = (ctypes.c_int * len(GUARDED)).from_address(host.value)
+        _guard_device = device.value
         _lib = handle
     return _lib
+
+
+def guard_word(name: str) -> int:
+    """Device address of kernel `name`'s guard word (after lib())."""
+    return _guard_device + 4 * list(GUARDED).index(name)
+
+
+def check_guards() -> None:
+    """Raise ValueError if a kernel has set its guard word, and clear it.
+    Reads host memory only: a launch still running has not set it yet."""
+    if _guard_host is None:
+        return
+    for i, (name, what) in enumerate(GUARDED.items()):
+        item = _guard_host[i]
+        if item:
+            _guard_host[i] = 0
+            raise ValueError(f"{name}: inputs out of contract in an earlier "
+                             f"launch: {what.format(item - 1)}")
 
 
 def check(name: str, code: int) -> None:

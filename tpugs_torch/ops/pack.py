@@ -13,7 +13,9 @@ pre-scaled to (ca, cb, cc) = (-a/2, -b, -c/2).
 
 The CUDA kernel is csrc/align_copy.cu (it replaces
 tpugs/ops/pallas/pack.py::_align_copy_kernel). A CUDA tensor goes to the
-kernel, a CPU tensor to `align_copy_plain`.
+kernel, a CPU tensor to `align_copy_plain`. The kernel checks the segments'
+bounds itself (cuda_lib's guard words), so the wrapper reads nothing back
+from the device.
 """
 from __future__ import annotations
 
@@ -102,8 +104,12 @@ def align_copy(attr_c: torch.Tensor, tile_start: torch.Tensor,
                p_aligned: int) -> torch.Tensor:
     """Re-lay compact per-tile segments of attr_c [ATTR_ROWS, Pc] f32 into
     [ATTR_ROWS, p_aligned]: tile t's segment at astart[t], zeros up to its
-    128 boundary. Columns past the last tile's padded end are left
-    unwritten by the kernel (size p_aligned with aligned_length)."""
+    128 boundary and past the last tile's padded end. The segments' contract
+    (each starts on a 128 boundary, its padded span ends at or before the
+    next tile's start and p_aligned, its entries lie in attr_c) is checked
+    by the kernel on the card: there cuda_lib raises ValueError at the
+    first later launch or check_guards() once it has run, and the kernel
+    reads and writes nothing outside attr_c and the output."""
     if attr_c.device.type == "cpu":
         return align_copy_plain(attr_c, tile_start, astart, counts, p_aligned)
     dev = attr_c.device
@@ -120,19 +126,11 @@ def align_copy(attr_c: torch.Tensor, tile_start: torch.Tensor,
     out = torch.empty((ATTR_ROWS, p_aligned), dtype=torch.float32, device=dev)
     if num_tiles == 0:
         return out
-    # Bounds of what the kernel reads and writes (one host read).
-    src_end, dst_end = torch.stack([
-        torch.max(tile_start.to(torch.int64) + counts),
-        torch.max(astart.to(torch.int64) + _pad(counts)),
-    ]).tolist()
-    if src_end > attr_c.shape[1] or dst_end > p_aligned:
-        raise ValueError(f"align_copy: segments read to column {src_end} of "
-                         f"{attr_c.shape[1]} and write to {dst_end} of "
-                         f"{p_aligned}")
     code = lib.tpugs_align_copy(
         dev.index, attr_c.data_ptr(), attr_c.shape[1], tile_start.data_ptr(),
         astart.data_ptr(), counts.data_ptr(), num_tiles, out.data_ptr(),
-        p_aligned, cuda_lib.stream_ptr(dev))
+        p_aligned, cuda_lib.guard_word("tpugs_align_copy"),
+        cuda_lib.stream_ptr(dev))
     align_copy.launches += 1
     cuda_lib.check("tpugs_align_copy", code)
     return out

@@ -24,7 +24,9 @@ interval [red_start[g], red_start[g] + red_count[g]) (binning's
 reduce_meta), monotone and disjoint, and adds each interval in slot order.
 It needs no key, so it has no limit on n. Its kernel is also in
 csrc/segreduce.cu (it replaces tpugs/ops/pallas/segreduce.py::
-_segreduce_kernel); a CPU tensor goes to `segment_reduce_plain`.
+_segreduce_kernel); a CPU tensor goes to `segment_reduce_plain`. The
+kernel checks the intervals against exp_end itself (cuda_lib's guard
+words), so the wrapper reads nothing back from the device.
 """
 from __future__ import annotations
 
@@ -126,7 +128,9 @@ def segment_reduce(rows: torch.Tensor, red_start: torch.Tensor,
     """Per-gaussian sums over monotone, disjoint slot intervals. rows [P,
     NUM_ATTR] f32 in expansion order, red_start/red_count [n] int32, every
     interval inside [0, exp_end) and exp_end <= P. Returns [NUM_ATTR, n]
-    f32, zero for an empty interval."""
+    f32, zero for an empty interval. On the card an interval outside [0,
+    exp_end) is not read: its sums are NaN, and cuda_lib raises ValueError
+    at the first launch or check_guards() after the kernel has run."""
     if rows.device.type == "cpu":
         return segment_reduce_plain(rows, red_start, red_count, n)
     dev = rows.device
@@ -145,14 +149,11 @@ def segment_reduce(rows: torch.Tensor, red_start: torch.Tensor,
     out = torch.empty((NUM_ATTR, n), dtype=torch.float32, device=dev)
     if n == 0:
         return out
-    # Bound of what the kernel reads (one host read).
-    end = int(torch.max(red_start.to(torch.int64) + red_count))
-    if end > exp_end:
-        raise ValueError(f"segment_reduce: an interval ends at slot {end}, "
-                         f"past exp_end = {exp_end}")
     code = lib.tpugs_segreduce_interval(
         dev.index, rows.data_ptr(), red_start.data_ptr(), red_count.data_ptr(),
-        n, out.data_ptr(), cuda_lib.stream_ptr(dev))
+        n, exp_end, out.data_ptr(),
+        cuda_lib.guard_word("tpugs_segreduce_interval"),
+        cuda_lib.stream_ptr(dev))
     segment_reduce.launches += 1
     cuda_lib.check("tpugs_segreduce_interval", code)
     return out

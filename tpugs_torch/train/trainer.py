@@ -24,6 +24,7 @@ import time
 import numpy as np
 import torch
 
+from tpugs_torch import cuda_lib
 from tpugs_torch.core.gaussians import GaussianState
 from tpugs_torch.core.init import init_from_sfm
 from tpugs_torch.data.dataset import Dataset
@@ -328,7 +329,11 @@ class Trainer:
                 losses.append(stats.loss)
             prev, step = step, step + k_blk
 
-            if bool(stats.pair_overflow) or bool(stats.hit_overflow):
+            overflow = bool(stats.pair_overflow) or bool(stats.hit_overflow)
+            # The read above waited for the block's last kernel: a contract
+            # violation found on the card raises before any log or save.
+            cuda_lib.check_guards()
+            if overflow:
                 self._handle_overflow(stats, step)
 
             for s in range(prev, step):

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from tpugs_torch import cuda_lib
 from tpugs_torch.core.camera import CameraInfo
 from tpugs_torch.core.gaussians import params_from_numpy
 from tpugs_torch.device import resolve_device
@@ -154,6 +155,9 @@ class OfflineRenderer:
             ms = t0.elapsed_time(t1)
         else:
             ms = (time.perf_counter() - h0) * 1e3
+        # The frame's kernels have run: a contract violation found on the
+        # card raises before the frame is returned.
+        cuda_lib.check_guards()
         self.frame_stats.append(FrameStats(w, h, num_pairs, tile_hits, ms))
         return out.color, out.final_T, out.n_contrib
 
