@@ -52,9 +52,13 @@ a nonzero exit:
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
-align-copy's and the interval sum's wrappers, whose guards run on the card,
-are also called once under torch's sync debug mode, which fails them on any
-host read, and no kernel may have set its guard word by the end.
+wrappers of the align-copy, the interval sum and the two compositors, whose
+guards run on the card, are also called once under torch's sync debug
+mode, which fails them on any host read, and no kernel may have set its
+guard word by the end. The compositors' rows also print step1 lines: the
+busiest tile alone (every other tile's segment emptied), the (pixel,
+entry) pairs evaluated at tile, sub-tile and warp granularity against
+those needed, and the distribution of tile walks.
 Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven,
@@ -347,13 +351,32 @@ def phase_build():
 
     path = cuda_lib.build()
     cuda_lib.lib()
+    # nvcc's report: this process's build, or the one that built this hash.
+    log = cuda_lib.build_log or (path.parent / "nvcc.log").read_text()
     regs = re.findall(r"Function properties for (\S+)|Used (\d+) registers",
-                      cuda_lib.build_log)
+                      log)
     used = [int(r[1]) for r in regs if r[1]]
-    spills = re.findall(r"(\d+) bytes spill stores", cuda_lib.build_log)
+    spills = re.findall(r"(\d+) bytes spill stores", log)
     print(f"built {os.path.relpath(path)} in "
           f"{cuda_lib.build_seconds if cuda_lib.build_seconds else 0:.1f} s; "
           f"registers per thread {used}, spill stores {spills}", flush=True)
+    # ptxas -v per entry function: registers, shared memory, spills.
+    for fn, body in re.findall(r"Compiling entry function '(\S+)' for "
+                               r"'\S+'\n(.*?)(?=Compiling entry|\Z)",
+                               log, re.S):
+        if "composite" in fn:
+            regs = re.search(r"Used (\d+) registers", body)
+            smem = re.search(r"(\d+) bytes smem", body)
+            spill = re.search(r"(\d+) bytes spill stores", body)
+            print(f"ptxas {fn}: {regs.group(1) if regs else '?'} registers, "
+                  f"{smem.group(1) if smem else '?'} bytes smem, "
+                  f"{spill.group(1) if spill else '?'} bytes spill stores",
+                  flush=True)
+    for tile in (16, 32, 64):
+        g, n = cuda_lib.cluster_occupancy(0, tile, tile)
+        print(f"backward compositor at tiles of {tile}: clusters of {g} "
+              f"sub-tile blocks, at most {n} active at once "
+              f"(cudaOccupancyMaxActiveClusters)", flush=True)
 
 
 def _scene(dev, n, w, h, seed, **kw):
@@ -635,6 +658,116 @@ def in_image(cfg, dev):
     return (x < cfg.img_w) & (y < cfg.img_h)
 
 
+def _walk_line(walk) -> str:
+    """max, 99th percentile and mean of per-tile walks, and their count."""
+    import torch
+
+    w = torch.sort(walk.flatten()).values
+    p99 = int(w[int(0.99 * (w.shape[0] - 1))]) if w.shape[0] else 0
+    return (f"max {int(w.max()) if w.shape[0] else 0} p99 {p99} mean "
+            f"{float(w.float().mean()) if w.shape[0] else 0.0:.1f} over "
+            f"{w.shape[0]} tiles")
+
+
+def _by_kernel_slot(cfg, per_pixel, pad, backward: bool):
+    """[T, PIX] -> [T, G, warps, WARP * ppt] in the forward's or the
+    backward's pixel order (composite_t.kernel_pixels), `pad` where a slot
+    lies past the tile."""
+    import torch
+
+    from tpugs_torch.ops import composite_t
+
+    kp = composite_t.kernel_pixels(cfg.tile_w, cfg.tile_h, backward,
+                                   per_pixel.device)
+    flat = kp.flatten()
+    out = per_pixel[:, flat.clamp(min=0)]
+    out = torch.where(flat[None, :] >= 0, out, torch.full_like(out, pad))
+    return out.reshape(per_pixel.shape[0], kp.shape[0], kp.shape[1], -1)
+
+
+def _ceil(x, m):
+    return (x + m - 1) // m * m
+
+
+def step1_forward(cfg, a3, got, alone_ms, where: str):
+    """Step 1's split of the forward compositor on one frame: the busiest
+    tile alone (every other tile's segment emptied), the (pixel, entry)
+    pairs that one block per tile, sub-tile blocks and 8x4 warps evaluate
+    against those that are needed, and the distribution of tile walks."""
+    import torch
+
+    from tpugs_torch.ops import composite_t
+    from tpugs_torch.ops.rasterize_tiled import T_THRESHOLD
+
+    _, astart, astop, attr, row_offset = a3
+    num = (astop - astart).long()
+    busiest = int(torch.argmax(num))
+    only = astart.clone()
+    only[busiest] = astop[busiest]
+    busy_ms = timed_alone(lambda: composite_t.composite_forward(
+        cfg, astart, only, attr, row_offset))
+    _, final_t, _, k_last = got
+    # A pixel walks until T drops below the threshold (k_last + 1 entries),
+    # else its tile's every entry.
+    walk = torch.where(final_t < T_THRESHOLD, k_last.long() + 1,
+                       num[:, None].expand_as(k_last))
+    batch = 256
+    tile_walk = torch.minimum(num, _ceil(walk.max(1).values, batch))
+    by_slot = _by_kernel_slot(cfg, walk, 0, False)
+    per_warp = by_slot.shape[-1]
+    sub_walk = torch.minimum(num[:, None], _ceil(by_slot.amax((2, 3)), batch))
+    warp_walk = torch.minimum(sub_walk[:, :, None], _ceil(by_slot.amax(3), 8))
+    needed = int((walk * in_image(cfg, walk.device)).sum())
+    tile_ev = cfg.pix * int(tile_walk.sum())
+    sub_ev = per_warp * by_slot.shape[2] * int(sub_walk.sum())
+    warp_ev = per_warp * int(warp_walk.sum())
+    print(f"step1 K3 {where}: whole kernel alone {alone_ms:.4f} ms, busiest "
+          f"tile ({int(num[busiest])} entries) alone {busy_ms:.4f} ms; "
+          f"(pixel, entry) pairs evaluated: one block per tile {tile_ev} "
+          f"({tile_ev / needed:.2f}x needed), {sub_walk.shape[1]} sub-tile "
+          f"blocks per tile {sub_ev} ({sub_ev / needed:.2f}x), their 8x4 "
+          f"warps at an 8-entry vote {warp_ev} ({warp_ev / needed:.2f}x), "
+          f"needed "
+          f"{needed}; tile walks {_walk_line(tile_walk)}, busiest tile's "
+          f"walk {int(tile_walk[busiest])}", flush=True)
+
+
+def step1_backward(a4, alone_ms, where: str, **kw):
+    """Step 1's split of the backward compositor (K4, or K4b with
+    transposed_out=False in kw): the busiest tile alone, the (pixel, entry)
+    pairs evaluated from the tile's largest k_last down, by the tile and by
+    warps from their own largest k_last, against those needed, and the
+    distribution of tile walks."""
+    import torch
+
+    from tpugs_torch.ops import composite_t
+
+    cfg, astart, astop, k_last = a4[0], a4[1], a4[2], a4[7]
+    num = (astop - astart).long()
+    busiest = int(torch.argmax(num))
+    only = astart.clone()
+    only[busiest] = astop[busiest]
+    args = (a4[0], astart, only) + tuple(a4[3:])
+    busy_ms = timed_alone(lambda: composite_t.composite_backward(*args, **kw))
+    kl = k_last.long()
+    tile_walk = (torch.minimum(kl.max(1).values, num - 1) + 1).clamp(min=0)
+    by_slot = _by_kernel_slot(cfg, kl, -1, True)
+    warp_walk = (torch.minimum(by_slot.amax(3), num[:, None, None] - 1)
+                 + 1).clamp(min=0)
+    needed = int(((kl + 1) * in_image(cfg, kl.device)).sum())
+    tile_ev = cfg.pix * int(tile_walk.sum())
+    warp_ev = by_slot.shape[-1] * int(warp_walk.sum())
+    name = "K4b" if kw.get("transposed_out") is False else "K4"
+    print(f"step1 {name} {where}: whole kernel alone {alone_ms:.4f} ms, "
+          f"busiest tile ({int(num[busiest])} entries) alone {busy_ms:.4f} "
+          f"ms; (pixel, entry) pairs evaluated: from the tile's largest "
+          f"k_last {tile_ev} ({tile_ev / needed:.2f}x needed), 8x8 warps "
+          f"of {by_slot.shape[1]} sub-tiles from their own {warp_ev} "
+          f"({warp_ev / needed:.2f}x), needed {needed}; tile walks "
+          f"{_walk_line(tile_walk)}, busiest tile's walk "
+          f"{int(tile_walk[busiest])}", flush=True)
+
+
 def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     """The three forward kernels on one frame's inputs (a1 for expand, a2
     for align-copy, a3 for the compositor): each held against its plain
@@ -683,7 +816,8 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
                     entries * 64 + pal * 64, 0, lib_ms, "index_select"))
 
     cfg = a3[0]
-    got = composite_t.composite_forward(*a3)
+    got = without_sync(lambda: composite_t.composite_forward(*a3),
+                       "composite_forward")
     k_ms = cuda_ms(lambda: composite_t.composite_forward(*a3))
     alone_ms = timed_alone(lambda: composite_t.composite_forward(*a3))
     torch.cuda.synchronize()
@@ -713,6 +847,7 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     k3_ops = 17 * pairs_eval + 9 * int((n_contrib * inside).sum())
     k3_bytes = entries * 36 + cfg.num_tiles * cfg.pix * 24
     rows.append(Row("composite_fwd", k_ms, alone_ms, pl_ms, k3_bytes, k3_ops))
+    step1_forward(cfg, a3, got, alone_ms, where)
     print(f"{where}: {p_out} expand slots, {entries} composited entries in "
           f"{counts.shape[0]} tiles (per tile: max {int(counts.max())}, mean "
           f"{entries / counts.shape[0]:.1f}), "
@@ -816,7 +951,8 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
 
     check_backward_kernels(a4, a5, errs, "train frame")
     cfg, astart, astop, k_last = a4[0], a4[1], a4[2], a4[7]
-    got = composite_t.composite_backward(*a4)
+    got = without_sync(lambda: composite_t.composite_backward(*a4),
+                       "composite_backward")
     k_ms = cuda_ms(lambda: composite_t.composite_backward(*a4))
     alone_ms = timed_alone(lambda: composite_t.composite_backward(*a4))
     torch.cuda.synchronize()
@@ -845,6 +981,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     k4_ops = 53 * walked
     k4_bytes = 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24
     rows = [Row("composite_bwd", k_ms, alone_ms, pl_ms, k4_bytes, k4_ops)]
+    step1_backward(a4, alone_ms, "train frame")
     print(f"backward compositor on the train frame: {entries} entries, "
           f"{walked} in-image (pixel, entry) pairs to the last contributor; "
           f"bit-identical to its plain version (also on 8 tiles incl. the "
@@ -1154,7 +1291,8 @@ def classic_kernel_rows(dev, a4b, a6, errs):
     from tpugs_torch.ops import composite_t, pack, segreduce
 
     cfg, astart, astop, attr, k_last = a4b[0], a4b[1], a4b[2], a4b[3], a4b[7]
-    got = composite_t.composite_backward(*a4b, transposed_out=False)
+    got = without_sync(lambda: composite_t.composite_backward(
+        *a4b, transposed_out=False), "composite_backward (entry-major)")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     ref = composite_t.composite_backward_plain(*a4b, transposed_out=False)
@@ -1173,6 +1311,7 @@ def classic_kernel_rows(dev, a4b, a6, errs):
     walked = int(((k_last.long() + 1) * in_image(cfg, dev)).sum())
     rows = [Row("composite_bwd_entry", k_ms, alone_ms, pl_ms,
                 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24, 53 * walked)]
+    step1_backward(a4b, alone_ms, "2^24 step 0", transposed_out=False)
 
     d_rows, red_start, red_count, exp_end, n = a6
     got = without_sync(lambda: segreduce.segment_reduce(*a6), "segment_reduce")

@@ -51,18 +51,20 @@ SEG_RTOL, SEG_ATOL = 1e-5, 1e-6
 GRAD_RTOL, GRAD_ATOL_REL = 1e-4, 2e-5
 
 
-def _aligned_scene(w, h, tile, seed, max_hits=512):
+def _aligned_scene(w, h, tile, seed, max_hits=512, tile_h=None):
     """Binned, packed and aligned pairs of a random screen-space scene with
-    opaque centres (alpha at the 0.99 clamp) and saturated pixels."""
+    opaque centres (alpha at the 0.99 clamp) and saturated pixels; tiles
+    of tile x tile_h (default square)."""
     rng = np.random.default_rng(seed)
     d = random_projection(300, w, h, seed, big_rects=True)
     d["opac"] = rng.uniform(0.3, 0.99, 300).astype(np.float32)
     d["opac"][::7] = 1.0  # opac * gauss >= 0.99 near these centres
     tp = torch_projection(d)
-    cfg = TR.RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+    tile_h = tile if tile_h is None else tile_h
+    cfg = TR.RasterConfig(img_h=h, img_w=w, tile_h=tile_h, tile_w=tile,
                           pair_capacity=CAP, max_hits_per_tile=max_hits)
     b, _ = TB.clamp_tile_segments(
-        TB.bin_gaussians_expand_kernel(tp, w, h, tile, tile, CAP), max_hits)
+        TB.bin_gaussians_expand_kernel(tp, w, h, tile, tile_h, CAP), max_hits)
     astart, astop, counts = TP.aligned_offsets(b.tile_start, b.tile_stop)
     attr_c = TP.pack_compact_attrs(b.pair_gauss, tp.means2d, tp.conic, tp.rgb,
                                    tp.opac, b.pair_gauss.shape[0])
@@ -142,23 +144,74 @@ def test_backward_tile_subset_and_zero_cotangent():
 
 
 def test_block_sum_is_the_kernel_tree():
-    """The plain version's pixel sum follows the kernel's order: thread
-    sums over its pixels, warp shuffles, warps in order."""
-    v = torch.from_numpy(np.random.default_rng(0).normal(
-        size=(2, 3, 4 * TC.BLOCK)).astype(np.float32))
-    got = TC._block_sum(v)
-    x = np_(v).reshape(2, 3, 4, TC.BLOCK)
-    s = x[:, :, 0] + x[:, :, 1] + x[:, :, 2] + x[:, :, 3]
-    s = s.reshape(2, 3, 8, 32)
-    for off in (16, 8, 4, 2, 1):
-        s = s[..., :off] + s[..., off:2 * off]
-    s = s[..., 0]
-    ref = s[..., 0]
-    for wi in range(1, 8):
-        ref = ref + s[..., wi]
-    np.testing.assert_array_equal(np_(got), ref)
-    np.testing.assert_allclose(np_(got), np_(v).astype(np.float64).sum(-1),
-                               rtol=1e-5, atol=1e-4)
+    """The plain version's pixel sum follows the kernel's order over
+    [G, WARPS, WARP, ppt]: a thread's slots in order, the warp's shuffle-down
+    tree over lanes, the warps in order, the cluster's blocks in order."""
+    rng = np.random.default_rng(0)
+    for g, warps, ppt in ((1, 4, 2), (4, 4, 2), (8, 8, 2), (2, 8, 1)):
+        v = torch.from_numpy(rng.normal(
+            size=(2, 3, g * warps * 32 * ppt)).astype(np.float32))
+        got = TC._block_sum(v, warps, ppt)
+        x = np_(v).reshape(2, 3, g, warps, 32, ppt)
+        s = x[..., 0]
+        for i in range(1, ppt):
+            s = s + x[..., i]
+        for off in (16, 8, 4, 2, 1):
+            s = s[..., :off] + s[..., off:2 * off]
+        s = s[..., 0]  # [2, 3, g, warps]
+        blk = s[..., 0]
+        for wi in range(1, warps):
+            blk = blk + s[..., wi]
+        ref = blk[..., 0]
+        for b in range(1, g):
+            ref = ref + blk[..., b]
+        np.testing.assert_array_equal(np_(got), ref)
+        np.testing.assert_allclose(np_(got), np_(v).astype(np.float64).sum(-1),
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [(16, 16), (32, 32), (64, 64),
+                                           (32, 16), (48, 24)])
+def test_kernel_pixels_cover_the_tile(tile_w, tile_h):
+    """In both kernels' layouts every pixel of a tile sits in exactly one
+    (sub-tile, warp, lane, slot) and every warp in one compact patch; the
+    backward's sub-tiles fit one cluster."""
+    for backward in (False, True):
+        kp = TC.kernel_pixels(tile_w, tile_h, backward)
+        g, warps, _, ppt = kp.shape
+        assert warps * 32 in ((128, 256) if backward else (256,))
+        assert g <= TC.MAX_SUBTILES or not backward
+        held = kp[kp >= 0]
+        assert torch.equal(torch.sort(held).values,
+                           torch.arange(tile_w * tile_h))
+        for warp in kp.reshape(-1, 32 * ppt):
+            warp = warp[warp >= 0]
+            if warp.numel():
+                x, y = warp % tile_w, warp // tile_w
+                assert int(x.max() - x.min()) < 8
+                assert int(y.max() - y.min()) < 4 * ppt
+
+
+@pytest.mark.parametrize("w,h,tile_w,tile_h,seed", [
+    (96, 64, 32, 32, 4), (128, 96, 64, 64, 5), (100, 70, 32, 16, 6)])
+def test_backward_tile_subset_matches_whole_frame(w, h, tile_w, tile_h, seed):
+    """Under the sub-tile tree, the plain backward gives a tile the same
+    columns whether it walks alone, in a subset, or in the whole frame."""
+    cfg, astart, astop, attr = _aligned_scene(w, h, tile_w, seed,
+                                              tile_h=tile_h)
+    _, final_t, _, k_last = TC.composite_forward(cfg, astart, astop, attr)
+    d_color, r0_scale = _cotangents(cfg, seed)
+    args = (cfg, astart, astop, attr, d_color, r0_scale * final_t, final_t,
+            k_last)
+    full = np_(TC.composite_backward_plain(*args))
+    counts = np_(astop - astart)
+    busiest = int(np.argmax(counts))
+    for sel in ([busiest], [busiest, 0, cfg.num_tiles - 1]):
+        sub = np_(TC.composite_backward_plain(*args, tiles=torch.tensor(sel)))
+        cols = np.concatenate([np.arange(int(astart[t]), int(astop[t]))
+                               for t in sel])
+        np.testing.assert_array_equal(full[:, cols], sub[:, cols])
+    assert np.abs(full).max() > 0
 
 
 def _keys_and_cols(p, n, seed):

@@ -56,12 +56,20 @@ def test_expand_kernel_bit_identical(dev, tile, qbits, presorted, frac):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
-def test_align_copy_and_compositor(dev, tile):
-    proj = _proj(dev, 192, 128, 1)
-    cfg = RasterConfig(img_h=128, img_w=192, tile_h=tile, tile_w=tile,
+# Tiles of 16 (one sub-tile), 32 (four), 64 (the backward's eight of 32x16)
+# and a rectangular one, each with an image size; 200x136 leaves a ragged
+# edge on both axes.
+TILES = [(16, 16, 192, 128), (32, 32, 192, 128), (64, 64, 192, 128),
+         (32, 16, 200, 136)]
+
+
+@pytest.mark.parametrize("tile_w,tile_h,w,h", TILES)
+def test_align_copy_and_compositor(dev, tile_w, tile_h, w, h):
+    proj = _proj(dev, w, h, 1)
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile_h, tile_w=tile_w,
                        pair_capacity=1 << 20, max_hits_per_tile=1 << 16)
-    b = TB.bin_gaussians_expand_kernel(proj, 192, 128, tile, tile, cfg.pair_capacity)
+    b = TB.bin_gaussians_expand_kernel(proj, w, h, tile_w, tile_h,
+                                       cfg.pair_capacity)
     astart, astop, counts = pack.aligned_offsets(b.tile_start, b.tile_stop)
     attr_c = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
                                      proj.rgb, proj.opac, b.pair_gauss.shape[0])
@@ -117,12 +125,41 @@ def test_align_copy_layouts_bit_identical(dev, num_tiles, big, empty,
                                   "interval before 0",
                                   "segment past attr_c",
                                   "segment past p_aligned",
-                                  "segment off the 128 grid"])
+                                  "segment off the 128 grid",
+                                  "forward segment past P_al",
+                                  "backward segment reversed"])
 def test_contract_violation_raises(dev, case):
-    """K6 and K2 check their inputs' contract on the card instead of
-    reading them back: a violation is not read or written past, and raises
-    at the next check once the stream has passed the kernel."""
-    if case.startswith("interval"):
+    """K6, K2, K3 and K4 check their inputs' contract on the card instead
+    of reading them back: a violation is not read or written past, and
+    raises at the next check once the stream has passed the kernel."""
+    if case.startswith(("forward", "backward")):
+        cfg, astart, astop, attr = (a.to(dev) if isinstance(a, torch.Tensor)
+                                    else a for a in _walk_scene(32, 32, 1))
+        bad = 3
+        fwd = composite_t.composite_forward(cfg, astart, astop, attr)
+        ok = torch.arange(cfg.num_tiles, device=dev) != bad
+        if case.startswith("forward"):
+            stop = astop.clone()
+            stop[bad] = attr.shape[1] + 5
+            got = composite_t.composite_forward(cfg, astart, stop, attr)
+            torch.cuda.synchronize()
+            for a, r in zip(got, fwd):
+                assert torch.equal(a[ok], r[ok])
+            assert (got[1][bad] == 1).all() and (got[3][bad] == -1).all()
+        else:
+            start = astart.clone()
+            start[bad] = astop[bad] + 1
+            g = torch.Generator(device="cpu").manual_seed(7)
+            d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
+            args = (cfg, astart, astop, attr, d_color, fwd[1], fwd[1], fwd[3])
+            ref = composite_t.composite_backward(*args)
+            got = composite_t.composite_backward(cfg, start, *args[2:])
+            torch.cuda.synchronize()
+            cols = torch.cat([torch.arange(int(astart[t]), int(astop[t]))
+                              for t in range(cfg.num_tiles) if t != bad]).to(dev)
+            assert torch.equal(got[:, cols], ref[:, cols])
+        what = f"tile {bad} has a segment"
+    elif case.startswith("interval"):
         start = torch.tensor([0, 2, 5, 5, 9], dtype=torch.int32)
         count = torch.tensor([2, 3, 0, 4, 2], dtype=torch.int32)
         if case == "interval before 0":
@@ -161,12 +198,24 @@ def test_contract_violation_raises(dev, case):
     cuda_lib.check_guards()  # the word was cleared
 
 
-@pytest.mark.parametrize("kernel", ["align_copy", "segment_reduce"])
+@pytest.mark.parametrize("kernel", ["align_copy", "segment_reduce",
+                                    "composite_forward", "composite_backward"])
 def test_wrapper_makes_no_host_read(dev, kernel):
-    """K2's and K6's wrappers check their inputs' contract on the card: a
-    call makes the host wait for the device nowhere (torch's sync debug
-    mode raises where an operation would)."""
-    if kernel == "align_copy":
+    """K2's, K6's, K3's and K4's wrappers check their inputs' contract on
+    the card: a call makes the host wait for the device nowhere (torch's
+    sync debug mode raises where an operation would)."""
+    if kernel.startswith("composite"):
+        cfg, astart, astop, attr = (a.to(dev) if isinstance(a, torch.Tensor)
+                                    else a for a in _walk_scene(32, 32, 2))
+        _, final_t, _, k_last = composite_t.composite_forward(cfg, astart,
+                                                              astop, attr)
+        d_color = torch.ones((cfg.num_tiles, cfg.pix, 3), device=dev)
+        if kernel == "composite_forward":
+            call = lambda: composite_t.composite_forward(cfg, astart, astop, attr)
+        else:
+            call = lambda: composite_t.composite_backward(
+                cfg, astart, astop, attr, d_color, final_t, final_t, k_last)
+    elif kernel == "align_copy":
         args = [a.to(dev) if isinstance(a, torch.Tensor) else a
                 for a in _layout(2, 300, 8192, 0.2, 0)]
         call = lambda: pack.align_copy(*args)
@@ -204,54 +253,84 @@ def test_contract_violation_raises_at_the_next_launch(dev):
     cuda_lib.check_guards()
 
 
+@pytest.mark.parametrize("kernel", ["align_copy", "composite_forward"])
 def test_render_cli_raises_on_a_violation_in_its_last_frame(dev, monkeypatch,
-                                                            tmp_path):
-    """The align-copy of the render CLI's one and last frame gets a tile
-    start off the 128 grid: the CLI raises and writes no frame."""
+                                                            tmp_path, kernel):
+    """The align-copy (a tile start off the 128 grid) or the forward
+    compositor (the last tile's segment past P_al) of the render CLI's one
+    and last frame breaks its contract: the CLI raises and writes no
+    frame."""
     from tpugs_torch.apps import render as render_app
     from tpugs_torch.io.ply import write_gaussian_ply_numpy
 
-    real = pack.align_copy
+    if kernel == "align_copy":
+        real = pack.align_copy
 
-    def off_grid(attr_c, tile_start, astart, counts, p_aligned):
-        astart = astart.clone()
-        astart[-1] += 4
-        return real(attr_c, tile_start, astart, counts, p_aligned)
+        def broken(attr_c, tile_start, astart, counts, p_aligned):
+            astart = astart.clone()
+            astart[-1] += 4
+            return real(attr_c, tile_start, astart, counts, p_aligned)
 
-    off_grid.launches = 0  # the real wrapper counts on the module's name
-    monkeypatch.setattr(pack, "align_copy", off_grid)
+        module, match = pack, "tpugs_align_copy: .*has a segment"
+    else:
+        real = composite_t.composite_forward
+
+        def broken(cfg, astart, astop, sorted_attr, row_offset=0):
+            astop = astop.clone()
+            astop[-1] = sorted_attr.shape[1] + 1
+            return real(cfg, astart, astop, sorted_attr, row_offset)
+
+        module, match = composite_t, "tpugs_composite_fwd: .*has a segment"
+    broken.launches = 0  # the real wrapper counts on the module's name
+    monkeypatch.setattr(module, kernel, broken)
     p = synthetic_params_numpy(3000, seed=2)
     ply = tmp_path / "m.ply"
     write_gaussian_ply_numpy(ply, p["means"], p["sh"], p["opacity_logits"],
                              p["log_scales"], p["quats"])
-    with pytest.raises(ValueError, match="tpugs_align_copy: .*has a segment"):
+    with pytest.raises(ValueError, match=match):
         render_app.main(["-m", str(ply), "-o", str(tmp_path / "f"),
                          "--frames", "1", "--width", "160", "--height", "96",
                          "--pair-capacity", str(1 << 18), "--max-hits", "4096"])
-    assert off_grid.launches == 1
+    assert broken.launches == 1
     assert not (tmp_path / "f" / "frame_0000.png").exists()
 
 
+@pytest.mark.parametrize("kernel", ["segment_reduce", "composite_backward"])
 def test_trainer_raises_on_a_violation_in_its_last_step(dev, monkeypatch,
-                                                        tmp_path):
+                                                        tmp_path, kernel):
     """The interval segment sum of the Trainer's one and last step (the
-    classic backward) gets an interval before slot 0. No kernel of the
-    library launches after it in that run: the Trainer's own read of the
-    guard words raises, before it logs or saves a checkpoint."""
+    classic backward) gets an interval before slot 0, or its backward
+    compositor (the sorted backward) a reversed segment for tile 0. No
+    kernel of the library launches after the interval sum in that run, and
+    the compositor's violation may be found at the segment sum's launch or
+    later: either way the Trainer raises before it logs or saves a
+    checkpoint."""
     from tpugs_torch.ops import composite
     from tpugs_torch.train.trainer import TrainConfig, Trainer
     from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
 
-    real = segreduce.segment_reduce
+    if kernel == "segment_reduce":
+        real = segreduce.segment_reduce
 
-    def before_zero(rows, red_start, red_count, exp_end, n):
-        red_start = red_start.clone()
-        red_start[0] = -1
-        return real(rows, red_start, red_count, exp_end, n)
+        def broken(rows, red_start, red_count, exp_end, n):
+            red_start = red_start.clone()
+            red_start[0] = -1
+            return real(rows, red_start, red_count, exp_end, n)
 
-    before_zero.launches = 0  # the real wrapper counts on the module's name
-    monkeypatch.setattr(composite, "SORTED_SEGRED_MIN", 1 << 62)
-    monkeypatch.setattr(segreduce, "segment_reduce", before_zero)
+        monkeypatch.setattr(composite, "SORTED_SEGRED_MIN", 1 << 62)
+        module, match = segreduce, "tpugs_segreduce_interval: .*gaussian 0"
+    else:
+        real = composite_t.composite_backward
+
+        def broken(cfg, astart, *args, **kw):
+            astart = astart.clone()
+            astart[0] = astart[0] + (1 << 20)
+            return real(cfg, astart, *args, **kw)
+
+        broken.launches_entry_major = 0
+        module, match = composite_t, "tpugs_composite_bwd: .*tile 0 "
+    broken.launches = 0  # the real wrapper counts on the module's name
+    monkeypatch.setattr(module, kernel, broken)
     root = str(tmp_path / "gt")
     write_gt_dataset(root, make_gt_model(500, seed=0, device="cpu"),
                      num_views=4, width=64, height=48, sparse_points=200)
@@ -260,9 +339,9 @@ def test_trainer_raises_on_a_violation_in_its_last_step(dev, monkeypatch,
                                    densify_mode="none", tile_h=16, tile_w=16,
                                    output_dir=str(out)),
                  log_fn=lambda *_: None, device="cuda")
-    with pytest.raises(ValueError, match="tpugs_segreduce_interval: .*gaussian 0"):
+    with pytest.raises(ValueError, match=match):
         tr.train(1)
-    assert before_zero.launches == 1
+    assert broken.launches == 1
     assert not list(out.glob("model_*")) and not list(out.glob("ckpt_*"))
 
 
@@ -289,11 +368,12 @@ def test_render_on_card_matches_cpu(dev):
     assert abs(pairs[0] - pairs[1]) <= 1e-4 * pairs[1]
 
 
-def _aligned(dev, w, h, tile, seed):
+def _aligned(dev, w, h, tile_w, tile_h, seed):
     proj = _proj(dev, w, h, seed)
-    cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile_h, tile_w=tile_w,
                        pair_capacity=1 << 20, max_hits_per_tile=1 << 16)
-    b = TB.bin_gaussians_expand_kernel(proj, w, h, tile, tile, cfg.pair_capacity)
+    b = TB.bin_gaussians_expand_kernel(proj, w, h, tile_w, tile_h,
+                                       cfg.pair_capacity)
     astart, astop, counts = pack.aligned_offsets(b.tile_start, b.tile_stop)
     attr_c = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
                                      proj.rgb, proj.opac, b.pair_gauss.shape[0])
@@ -302,14 +382,14 @@ def _aligned(dev, w, h, tile, seed):
     return cfg, astart, astop, attr
 
 
-@pytest.mark.parametrize("tile", [16, 32, 64])
-def test_backward_kernel_bit_identical(dev, tile):
+@pytest.mark.parametrize("tile_w,tile_h,w,h", TILES)
+def test_backward_kernel_bit_identical(dev, tile_w, tile_h, w, h):
     """The backward kernel against its plain version on the slots that hold
     a pair: the same arithmetic in the same order (round-to-nearest
     intrinsics, the plain version repeating the kernel's summation tree)."""
-    cfg, astart, astop, attr = _aligned(dev, 192, 128, tile, 3)
+    cfg, astart, astop, attr = _aligned(dev, w, h, tile_w, tile_h, 3)
     _, final_t, _, k_last = composite_t.composite_forward(cfg, astart, astop, attr)
-    g = torch.Generator(device="cpu").manual_seed(tile)
+    g = torch.Generator(device="cpu").manual_seed(tile_w)
     d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
     r0 = torch.randn((cfg.num_tiles, cfg.pix), generator=g).to(dev) * final_t
     args = (cfg, astart, astop, attr, d_color, r0, final_t, k_last)
@@ -363,13 +443,13 @@ def test_render_gradients_on_card_match_cpu(dev):
         assert close.mean() >= 0.999, (name, close.mean())
 
 
-@pytest.mark.parametrize("tile", [16, 32])
-def test_entry_major_backward_kernel_bit_identical(dev, tile):
+@pytest.mark.parametrize("tile_w,tile_h,w,h", TILES)
+def test_entry_major_backward_kernel_bit_identical(dev, tile_w, tile_h, w, h):
     """K4b: the entry-major layout against its plain version and against
     the attribute-major kernel transposed, on the slots that hold a pair."""
-    cfg, astart, astop, attr = _aligned(dev, 192, 128, tile, 5)
+    cfg, astart, astop, attr = _aligned(dev, w, h, tile_w, tile_h, 5)
     _, final_t, _, k_last = composite_t.composite_forward(cfg, astart, astop, attr)
-    g = torch.Generator(device="cpu").manual_seed(tile + 1)
+    g = torch.Generator(device="cpu").manual_seed(tile_w + 1)
     d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
     r0 = torch.randn((cfg.num_tiles, cfg.pix), generator=g).to(dev) * final_t
     args = (cfg, astart, astop, attr, d_color, r0, final_t, k_last)
@@ -380,6 +460,82 @@ def test_entry_major_backward_kernel_bit_identical(dev, tile):
     assert torch.isfinite(got[valid]).all()
     assert torch.equal(got[valid], ref[valid])
     assert torch.equal(got[valid], composite_t.composite_backward(*args).T[valid])
+
+
+def _walk_scene(tile_w, tile_h, seed=0):
+    """A hand-built aligned table on 3x2 tiles, the last column and row
+    ragged. Each tile first holds small opaque gaussians on a 2-pixel grid
+    over its left half and top 16 rows or half (the forward's first
+    sub-tile at tiles of 32, its first four at 64), then faint wide ones
+    (alpha ~0.005), every 50th a thin ellipse with a strong cross term. Tile
+    0 holds 2,500 entries, so its walk runs past three batches of the
+    forward (256 entries) and many of the backward (64) while the pixels
+    under the opaque ones stop within the first batch. The other tiles
+    hold 0-600 entries (tile 2 none)."""
+    g = np.random.default_rng(seed)
+    cfg = RasterConfig(img_h=tile_h + tile_h // 2, img_w=2 * tile_w + tile_w // 2,
+                       tile_h=tile_h, tile_w=tile_w, pair_capacity=1 << 20,
+                       max_hits_per_tile=1 << 16)
+    counts = g.integers(0, 600, cfg.num_tiles)
+    counts[0], counts[2] = 2500, 0
+    padded = (counts + 127) // 128 * 128
+    astart = np.cumsum(padded) - padded
+    attr = np.zeros((pack.ATTR_ROWS, int(padded.sum())), np.float32)
+    for t, n in enumerate(counts):
+        x0, y0 = (t % cfg.ntx) * tile_w, (t // cfg.ntx) * tile_h
+        sig, op = np.full(n, 40.0), np.full(n, 0.006)
+        x, y = x0 + g.uniform(0, tile_w, n), y0 + g.uniform(0, tile_h, n)
+        gx, gy = np.meshgrid(np.arange(-1.5, tile_w / 2 + 2, 2.0),
+                             np.arange(-1.5, max(tile_h / 2, 16) + 2, 2.0))
+        k = min(n, gx.size)
+        sig[:k], op[:k] = 2.0, 0.95
+        x[:k], y[:k] = x0 + gx.flat[:k], y0 + gy.flat[:k]
+        c = slice(astart[t], astart[t] + n)
+        attr[0, c], attr[1, c] = x, y
+        attr[2, c] = attr[4, c] = -0.5 / sig**2
+        attr[3, c] = g.uniform(-1e-4, 1e-4, n)
+        # Past the skew for which the forward bounds an entry by a box.
+        attr[3, c][::50] = -1.999 * 0.5 / sig[::50] ** 2
+        attr[5, c] = op
+        attr[6:9, c] = g.uniform(0, 1, (3, n))
+        attr[pack.GID_ROW, c] = np.arange(n)
+        attr[pack.VALID_ROW, c] = 1.0
+    astart = torch.from_numpy(astart.astype(np.int32))
+    return (cfg, astart, astart + torch.from_numpy(counts.astype(np.int32)),
+            torch.from_numpy(attr))
+
+
+@pytest.mark.parametrize("tile_w,tile_h", [t[:2] for t in TILES])
+def test_compositors_on_long_and_uneven_walks(dev, tile_w, tile_h):
+    """K3, K4 and K4b against their plain versions where a tile walks more
+    than three batches and its sub-tiles (or, at G = 1, its warps) stop at
+    different entries."""
+    cfg, astart, astop, attr = (a.to(dev) if isinstance(a, torch.Tensor)
+                                else a for a in _walk_scene(tile_w, tile_h))
+    got = composite_t.composite_forward(cfg, astart, astop, attr)
+    ref = composite_t.composite_forward_plain(cfg, astart, astop, attr)
+    for a, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(np_(a), np_(r), atol=1e-5)
+    for a, r in zip(got[2:], ref[2:]):
+        assert (a == r).float().mean() >= 0.999
+    k_last = got[3]
+    # The last contributor of each sub-tile (of each warp at G = 1).
+    kp = composite_t.kernel_pixels(tile_w, tile_h, False, dev)
+    held = k_last[0][kp.clamp(min=0)].masked_fill(kp < 0, -1)
+    per_unit = held.amax((1, 2, 3)) if kp.shape[0] > 1 else held.amax((0, 2, 3))
+    assert int(k_last[0].max()) >= 3 * 256
+    assert int(per_unit.min()) < 256 <= int(per_unit.max())
+    g = torch.Generator(device="cpu").manual_seed(tile_w + tile_h)
+    d_color = torch.randn((cfg.num_tiles, cfg.pix, 3), generator=g).to(dev)
+    r0 = torch.randn((cfg.num_tiles, cfg.pix), generator=g).to(dev) * got[1]
+    args = (cfg, astart, astop, attr, d_color, r0, got[1], k_last)
+    valid = attr[pack.VALID_ROW] > 0
+    cols = composite_t.composite_backward(*args)
+    assert torch.equal(cols[:, valid], composite_t.composite_backward_plain(
+        *args)[:, valid])
+    rows = composite_t.composite_backward(*args, transposed_out=False)
+    assert torch.equal(rows[valid], cols.T[valid])
+    cuda_lib.check_guards()
 
 
 @pytest.mark.parametrize("n,span,empty,offset", [

@@ -15,10 +15,10 @@ launches on the stream it is given and returns `cudaGetLastError()`;
 `check` turns a nonzero code into an exception.
 
 Guard words: a kernel that checks its inputs' contract on the device (the
-align-copy, the interval segment sum) stores a nonzero value into its
-word of mapped pinned host memory (csrc/guard_words.cu, one word per
-entry of GUARDED) when they break it, and never reads or writes outside
-its buffers. `check_guards` reads the words on the host, which does not
+align-copy, the interval segment sum, the two compositors) stores a
+nonzero value into its word of mapped pinned host memory
+(csrc/guard_words.cu, one word per entry of GUARDED) when they break it,
+and never reads or writes outside its buffers. `check_guards` reads the words on the host, which does not
 synchronise the device, and raises on a set one. `lib()`, which every
 wrapper calls before its launch, calls it, so a violation raises at the
 first launch after the stream has passed the kernel that found it, never
@@ -53,10 +53,12 @@ SIGNATURES = {
     "tpugs_expand": [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                      _P],
     "tpugs_align_copy": [_I, _P, _L, _P, _P, _P, _I, _P, _L, _P, _P],
-    "tpugs_composite_fwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P],
-    "tpugs_composite_bwd": [_I, _P, _L, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                            _P, _P, _P, _I, _P],
+    "tpugs_composite_fwd": [_I, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P, _P, _P],
+    "tpugs_composite_bwd": [_I, _P, _L, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                            _P, _P, _P, _P, _I, _P, _P],
+    "tpugs_composite_bwd_clusters": [_I, _I, _I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_I)],
     "tpugs_segreduce_sorted": [_I, _P, _L, _P, _I, _P, _P],
     "tpugs_segreduce_interval": [_I, _P, _P, _P, _I, _L, _P, _P, _P],
     "tpugs_guard_words": [_I, ctypes.POINTER(_P), ctypes.POINTER(_P)],
@@ -69,6 +71,10 @@ GUARDED = {
                         "does not start on a 128-column boundary",
     "tpugs_segreduce_interval": "gaussian {} has an interval outside "
                                 "[0, exp_end)",
+    "tpugs_composite_fwd": "tile {} has a segment [astart, astop) that is "
+                           "reversed or lies outside [0, P_al)",
+    "tpugs_composite_bwd": "tile {} has a segment [astart, astop) that is "
+                           "reversed or lies outside [0, P_al)",
 }
 
 _lib = None
@@ -96,7 +102,7 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -164,6 +170,16 @@ def check_guards() -> None:
             _guard_host[i] = 0
             raise ValueError(f"{name}: inputs out of contract in an earlier "
                              f"launch: {what.format(item - 1)}")
+
+
+def cluster_occupancy(device: int, tile_w: int, tile_h: int) -> tuple[int, int]:
+    """(sub-tiles per tile, clusters of that many the card holds at once)
+    for the backward compositor at tile_w x tile_h
+    (cudaOccupancyMaxActiveClusters)."""
+    g, n = ctypes.c_int(), ctypes.c_int()
+    check("tpugs_composite_bwd_clusters", lib().tpugs_composite_bwd_clusters(
+        device, tile_w, tile_h, ctypes.byref(g), ctypes.byref(n)))
+    return g.value, n.value
 
 
 def check(name: str, code: int) -> None:

@@ -46,10 +46,48 @@ from tpugs_torch.ops.rasterize_tiled import (ALPHA_CLAMP, ALPHA_MIN,
                                              _pixel_coords)
 
 EXIT_CHECK = 64  # plain version: steps between drops of finished tiles
-BLOCK = 256  # the kernels' threads per tile
 WARP = 32
-MAX_TILE_PIX = 16 * BLOCK  # the kernels: 256 threads of at most 16 pixels
+SUB_H = 16  # sub-tile height
+MAX_SUBTILES = 8  # the backward's cluster: the portable cluster size
 ONE_MINUS_MIN = 1e-5  # floor of 1 - alpha when T is recovered by division
+
+
+def subtile_geometry(tile_w: int, tile_h: int,
+                     backward: bool = False) -> tuple[int, int, int, int]:
+    """(gw, gh, sw, ppt): the kernels cut a tile into gw x gh sub-tiles of
+    sw x 16 pixels, one block each, ppt pixels a thread. The forward: 16x16
+    at one pixel a thread (256 threads), any number of them. The backward,
+    whose sub-tiles of a tile form one cluster: two pixels a thread, 16x16
+    sub-tiles (128 threads) where at most MAX_SUBTILES cover the tile, else
+    32x16 ones (256 threads). csrc/composite_fwd.cu and
+    csrc/composite_bwd.cu compute the same."""
+    if not backward:
+        return -(-tile_w // 16), -(-tile_h // SUB_H), 16, 1
+    for sw in (16, 32):
+        gw, gh = -(-tile_w // sw), -(-tile_h // SUB_H)
+        if gw * gh <= MAX_SUBTILES:
+            return gw, gh, sw, 2
+    raise ValueError(f"{tile_w}x{tile_h} tiles need more than "
+                     f"{MAX_SUBTILES} sub-tiles of 32x16")
+
+
+def kernel_pixels(tile_w: int, tile_h: int, backward: bool = False,
+                  device=None) -> torch.Tensor:
+    """[G, warps, WARP, ppt] int64: the tile pixel (y * tile_w + x) that
+    sub-tile block s, warp w, lane l holds in slot i, or -1 past the tile's
+    edge. A warp holds an 8-wide patch, 4 rows a slot (8x4 at one pixel a
+    thread, 8x8 at two); the warps tile the sub-tile row by row."""
+    gw, gh, sw, ppt = subtile_geometry(tile_w, tile_h, backward)
+    across = sw // 8
+    warps = across * (SUB_H // (4 * ppt))
+    s = torch.arange(gw * gh, device=device)[:, None, None, None]
+    w = torch.arange(warps, device=device)[None, :, None, None]
+    lane = torch.arange(WARP, device=device)[None, None, :, None]
+    i = torch.arange(ppt, device=device)[None, None, None, :]
+    x = (s % gw) * sw + (w % across) * 8 + lane % 8
+    y = (s // gw) * SUB_H + (w // across) * (4 * ppt) + i * 4 + lane // 8
+    return torch.where((x < tile_w) & (y < tile_h), y * tile_w + x,
+                       torch.full_like(x, -1))
 
 
 def composite_forward_plain(cfg: RasterConfig, astart: torch.Tensor,
@@ -106,7 +144,11 @@ def composite_forward(cfg: RasterConfig, astart: torch.Tensor,
                       row_offset: int = 0):
     """Composite every tile. sorted_attr [ATTR_ROWS, P_al] f32 (pack.py
     layout), astart/astop [T] int32. Returns (color [T, PIX, 3] before
-    background, final_T [T, PIX], n_contrib [T, PIX], k_last [T, PIX])."""
+    background, final_T [T, PIX], n_contrib [T, PIX], k_last [T, PIX]).
+    The segments' contract (0 <= astart <= astop <= P_al) is checked by the
+    kernel on the card: there cuda_lib raises ValueError at the first later
+    launch or check_guards() once it has run, and the kernel composites a
+    violating tile as empty."""
     if sorted_attr.device.type == "cpu":
         return composite_forward_plain(cfg, astart, astop, sorted_attr,
                                        row_offset)
@@ -120,24 +162,21 @@ def composite_forward(cfg: RasterConfig, astart: torch.Tensor,
         raise ValueError(f"composite_forward: sorted_attr "
                          f"{tuple(sorted_attr.shape)}, {astart.shape[0]} "
                          f"starts; expected [{ATTR_ROWS}, P] and {nt}")
-    if pix > MAX_TILE_PIX:
-        raise ValueError(f"composite_forward: {pix}-pixel tiles; the kernel "
-                         f"takes at most {MAX_TILE_PIX}")
     lib = cuda_lib.lib()
     pal = sorted_attr.shape[1]
-    if nt and int(torch.max(astop)) > pal:
-        raise ValueError(f"composite_forward: segments end past column {pal}")
     color = torch.empty((nt, pix, 3), dtype=torch.float32, device=dev)
     final_t = torch.empty((nt, pix), dtype=torch.float32, device=dev)
     n_contrib = torch.empty((nt, pix), dtype=torch.int32, device=dev)
     k_last = torch.empty((nt, pix), dtype=torch.int32, device=dev)
     if nt == 0:
         return color, final_t, n_contrib, k_last
+    order = heaviest_first(astop - astart)
     code = lib.tpugs_composite_fwd(
         dev.index, sorted_attr.data_ptr(), pal, astart.data_ptr(),
-        astop.data_ptr(), nt, cfg.ntx, cfg.tile_w, cfg.tile_h, row_offset,
-        color.data_ptr(), final_t.data_ptr(), n_contrib.data_ptr(),
-        k_last.data_ptr(), cuda_lib.stream_ptr(dev))
+        astop.data_ptr(), order.data_ptr(), nt, cfg.ntx, cfg.tile_w,
+        cfg.tile_h, row_offset, color.data_ptr(), final_t.data_ptr(),
+        n_contrib.data_ptr(), k_last.data_ptr(),
+        cuda_lib.guard_word("tpugs_composite_fwd"), cuda_lib.stream_ptr(dev))
     composite_forward.launches += 1
     cuda_lib.check("tpugs_composite_fwd", code)
     return color, final_t, n_contrib, k_last
@@ -146,25 +185,37 @@ def composite_forward(cfg: RasterConfig, astart: torch.Tensor,
 composite_forward.launches = 0
 
 
-def _block_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum [..., PPT * BLOCK] over the last axis in the backward kernel's
-    order: each thread adds its PPT pixels (pixel p = thread + i * BLOCK) in
-    order, a warp adds its threads' sums by shuffles (lane l takes lane
-    l + 16, 8, 4, 2, 1), and the block adds its warps' sums in order."""
-    ppt = v.shape[-1] // BLOCK
-    v = v.reshape(v.shape[:-1] + (ppt, BLOCK))
-    s = v[..., 0, :]
+def heaviest_first(work: torch.Tensor) -> torch.Tensor:
+    """[T] int32: the tiles by descending `work` (the forward: entry
+    counts; the backward: the largest k_last, its walk), the order in which
+    the kernels' blocks take them. A schedule only: any order gives the
+    same result. Computed on the card, without a host read."""
+    return torch.argsort(work, descending=True).to(torch.int32)
+
+
+def _block_sum(v: torch.Tensor, warps: int, ppt: int) -> torch.Tensor:
+    """Sum [..., G * warps * WARP * ppt] over the last axis, laid out as
+    [G, warps, WARP, ppt] (kernel_pixels' order), in the backward kernel's
+    order: each thread adds its ppt slots in order, a warp adds its lanes
+    by the shuffle-down tree (lane l takes lane l + 16, 8, 4, 2, 1; the
+    kernel's transposing butterfly pairs the same lanes), a block adds its
+    warps' sums in order, and the cluster adds its blocks' sums in rank
+    order."""
+    v = v.reshape(v.shape[:-1] + (-1, warps, WARP, ppt))
+    s = v[..., 0]
     for i in range(1, ppt):
-        s = s + v[..., i, :]
-    s = s.reshape(s.shape[:-1] + (BLOCK // WARP, WARP))
+        s = s + v[..., i]
     off = WARP // 2
     while off:
         s = s[..., :off] + s[..., off:2 * off]
         off //= 2
     s = s[..., 0]
-    tot = s[..., 0]
-    for w in range(1, BLOCK // WARP):
-        tot = tot + s[..., w]
+    blk = s[..., 0]
+    for w in range(1, warps):
+        blk = blk + s[..., w]
+    tot = blk[..., 0]
+    for b in range(1, blk.shape[-1]):
+        tot = tot + blk[..., b]
     return tot
 
 
@@ -197,12 +248,17 @@ def _backward_plain_rows(cfg, astart, astop, attr, d_color_t, r0, final_t,
     num = astop.to(torch.int64)[sel] - start
     px, py = _pixel_coords(cfg, dev, row_offset, sel)
     nt = sel.shape[0]
-    # Pixels padded to the kernel's PPT * BLOCK slots; a padded pixel has
-    # k_last -1 and never contributes.
-    pad = -(-cfg.pix // BLOCK) * BLOCK - cfg.pix
+    # Pixels in the kernel's slot order (kernel_pixels); a slot past the
+    # tile's edge holds a pixel with k_last -1 that never contributes.
+    slots = kernel_pixels(cfg.tile_w, cfg.tile_h, True, dev)
+    warps, ppt = slots.shape[1], slots.shape[3]
+    slots = slots.flatten()
+    past = slots < 0
+    slots = slots.clamp(min=0)
 
     def padded(x, value):
-        return torch.nn.functional.pad(x, (0, pad), value=value)
+        x = x[:, slots]
+        return torch.where(past, torch.full_like(x, value), x)
 
     px, py = padded(px, 0.0), padded(py, 0.0)
     T = padded(final_t[sel].to(torch.float32), 1.0)
@@ -253,8 +309,8 @@ def _backward_plain_rows(cfg, astart, astop, attr, d_color_t, r0, final_t,
                 w * dcr,
                 w * dcg,
                 w * dcb,
-            ])  # [9, act, PPT * BLOCK]
-            g = _block_sum(terms)
+            ])  # [9, act, G * warps * WARP * ppt]
+            g = _block_sum(terms, warps, ppt)
             g[:2] = -g[:2]
             walked = k <= km_
             out[:, (s_ + k)[walked]] = g[:, walked]
@@ -272,7 +328,9 @@ def composite_backward(cfg: RasterConfig, astart: torch.Tensor,
     forward's aligned table), astart/astop [T] int32, d_color_t [T, PIX, 3],
     r0 and final_t [T, PIX] f32, k_last [T, PIX] int32 (the forward's).
     Returns [NUM_ATTR, P_al] f32 (transposed_out=True) or [P_al, NUM_ATTR]
-    (False); slots outside [astart, astop) are not written by the kernel."""
+    (False); slots outside [astart, astop) are not written by the kernel.
+    The segments' contract is checked on the card, as composite_forward's:
+    a violating tile is walked as empty."""
     if attr.device.type == "cpu":
         return composite_backward_plain(cfg, astart, astop, attr, d_color_t,
                                         r0, final_t, k_last, row_offset,
@@ -296,22 +354,20 @@ def composite_backward(cfg: RasterConfig, astart: torch.Tensor,
                          f"{astart.shape[0]} starts, d_color_t "
                          f"{tuple(d_color_t.shape)}; expected [{ATTR_ROWS}, P],"
                          f" {nt} and ({nt}, {pix}, 3)")
-    if pix > MAX_TILE_PIX:
-        raise ValueError(f"composite_backward: {pix}-pixel tiles; the kernel "
-                         f"takes at most {MAX_TILE_PIX}")
+    subtile_geometry(cfg.tile_w, cfg.tile_h, True)  # raises past 8x 32x16
     lib = cuda_lib.lib()
     pal = attr.shape[1]
-    if nt and int(torch.max(astop)) > pal:
-        raise ValueError(f"composite_backward: segments end past column {pal}")
     shape = (NUM_ATTR, pal) if transposed_out else (pal, NUM_ATTR)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     if nt == 0:
         return out
+    order = heaviest_first(k_last.amax(1))
     code = lib.tpugs_composite_bwd(
         dev.index, attr.data_ptr(), pal, astart.data_ptr(), astop.data_ptr(),
-        nt, cfg.ntx, cfg.tile_w, cfg.tile_h, row_offset, d_color_t.data_ptr(),
-        r0.data_ptr(), final_t.data_ptr(), k_last.data_ptr(), out.data_ptr(),
-        int(not transposed_out), cuda_lib.stream_ptr(dev))
+        order.data_ptr(), nt, cfg.ntx, cfg.tile_w, cfg.tile_h, row_offset,
+        d_color_t.data_ptr(), r0.data_ptr(), final_t.data_ptr(),
+        k_last.data_ptr(), out.data_ptr(), int(not transposed_out),
+        cuda_lib.guard_word("tpugs_composite_bwd"), cuda_lib.stream_ptr(dev))
     if transposed_out:
         composite_backward.launches += 1
     else:
