@@ -40,11 +40,14 @@ a nonzero exit:
      ways;
   4d. the train step at N = 2^24 (the garden frame's 1M gaussians and
      2^24 - 1M more behind the camera): the classic branch, K4b and K6 once
-     per step, K4 and K5 never; 2 warm-up and 5 timed steps, peak memory;
-     K4b and K6 held against their plain versions on step 0's inputs
+     per step, K4 and K5 never; 2 warm-up and 5 timed steps, peak memory
+     (step 0's captured kernel inputs held through the steps included);
+     K4b, K6 and K1 held against their plain versions on step 0's inputs
      (bit-identical) and timed there, K6 beside torch.segment_reduce,
      index_add_ and the zeroing of its output, with the lengths of the
-     intervals it summed;
+     intervals it summed, K1 also on the same inputs cut to their first 1M
+     gaussians; then binning.expand_inputs (the expand kernel's tables)
+     timed at 1M and 2^24;
   5. the train CLI (tpugs_torch.apps.train.main, --no-densify) for 20 steps
      on a 4-view 1297x840 GT dataset of a 1M-gaussian model with 1M sparse
      points; finite losses, no overflow left, every step through the sorted
@@ -53,12 +56,15 @@ Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
 wrappers of the align-copy, the interval sum and the two compositors, whose
-guards run on the card, are also called once under torch's sync debug
-mode, which fails them on any host read, and no kernel may have set its
-guard word by the end. The compositors' rows also print step1 lines: the
-busiest tile alone (every other tile's segment emptied), the (pixel,
-entry) pairs evaluated at tile, sub-tile and warp granularity against
-those needed, and the distribution of tile walks.
+guards run on the card, and of the expansion are also called once under
+torch's sync debug mode, which fails them on any host read, and no kernel
+may have set its guard word by the end. The compositors' rows also print
+step1 lines: the busiest tile alone (every other tile's segment emptied),
+the (pixel, entry) pairs evaluated at tile, sub-tile and warp granularity
+against those needed, and the distribution of tile walks; so do the
+expand rows (K1 on the render, train and 2^24 frames, K1b on both carried
+frames): the gaussians that own no slot, slots per owner, the lane use of
+a warp per gaussian and the slot spans of the kernel's chunks.
 Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven,
@@ -160,6 +166,22 @@ def check(cond: bool, what: str):
 Row = collections.namedtuple(
     "Row", "name ms alone_ms plain_ms nbytes ops lib_ms lib extra",
     defaults=(None, None, None))
+
+
+def host_ms(fn, reps: int = 100) -> float:
+    """Host time of fn() in ms per call over `reps` calls that do not wait
+    for the device: where it exceeds the kernel's device time, `ms` (the
+    wrapper as called, back to back) measures the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e3
 
 
 def timed_alone(wrapper_call) -> float:
@@ -364,7 +386,7 @@ def phase_build():
     for fn, body in re.findall(r"Compiling entry function '(\S+)' for "
                                r"'\S+'\n(.*?)(?=Compiling entry|\Z)",
                                log, re.S):
-        if "composite" in fn:
+        if "composite" in fn or "expand" in fn:
             regs = re.search(r"Used (\d+) registers", body)
             smem = re.search(r"(\d+) bytes smem", body)
             spill = re.search(r"(\d+) bytes spill stores", body)
@@ -768,6 +790,56 @@ def step1_backward(a4, alone_ms, where: str, **kw):
           f"{int(tile_walk[busiest])}", flush=True)
 
 
+# csrc/expand.cu's chunk of consecutive gaussians per block, per mode.
+EXPAND_CHUNK = {"expand": 512, "expand_carry": 256}
+
+
+def expand_slots(itab, p_out: int):
+    """Each gaussian's slots below p_out (int64 [N]); a gaussian owns a
+    slot where this is > 0."""
+    import torch
+
+    off, cnt = itab[0].long(), itab[1].long()
+    return (torch.clamp(off + cnt, max=p_out) - off).clamp(min=0)
+
+
+def expand_bytes(itab, p_out: int, carry: bool) -> int:
+    """The least bytes of K1 (carry: K1b): each gaussian's count, the other
+    eight table words of each gaussian that owns a slot below p_out, and
+    12 bytes written per slot; carry mode adds 36 bytes per owning gaussian
+    and 36 per slot."""
+    owners = int((expand_slots(itab, p_out) > 0).sum())
+    per_owner, per_slot = (68, 48) if carry else (32, 12)
+    return 4 * itab.shape[1] + per_owner * owners + per_slot * p_out
+
+
+def step1_expand(itab, p_out: int, alone_ms: float, name: str, where: str):
+    """Step 1's split of the expand kernel on one frame's inputs: the
+    gaussians that own no slot below p_out, the slots per owning gaussian,
+    the lane use of a warp-per-gaussian slot loop (slots / (32 x its
+    iterations)) and the slot spans of csrc/expand.cu's chunks."""
+    import torch
+
+    slots = expand_slots(itab, p_out)
+    n = itab.shape[1]
+    zero = int((itab[1] <= 0).sum())
+    owners = int((slots > 0).sum())
+    iters = int(((slots + 31) // 32).sum())
+    c = EXPAND_CHUNK[name]
+    span = torch.nn.functional.pad(slots, (0, -n % c)).view(-1, c).sum(1)
+    busy = span[span > 0]
+    print(f"step1 {'K1b' if name == 'expand_carry' else 'K1'} {where}: "
+          f"alone {alone_ms:.4f} ms; {n} gaussians, {zero / n:.6f} with "
+          f"count 0 and {(n - zero - owners) / n:.6f} more with offset >= "
+          f"p_out ({owners} own a slot); {p_out} slots, per owning gaussian "
+          f"mean {p_out / max(owners, 1):.3f} max {int(slots.max())}; a warp "
+          f"per gaussian: {iters} slot-loop iterations, lane use "
+          f"{p_out / max(32 * iters, 1):.4f}; chunks of {c}: {span.shape[0]}, "
+          f"{busy.shape[0]} own a slot, span max {int(span.max())} mean "
+          f"{float(busy.float().mean()) if busy.shape[0] else 0.0:.1f} "
+          f"(over those)", flush=True)
+
+
 def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     """The three forward kernels on one frame's inputs (a1 for expand, a2
     for align-copy, a3 for the compositor): each held against its plain
@@ -780,18 +852,20 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     from tpugs_torch.ops import composite_t, expand, pack
     from tpugs_torch.ops.rasterize_tiled import T_THRESHOLD
 
-    kern = expand.expand_pairs(*a1)
+    kern = without_sync(lambda: expand.expand_pairs(*a1), "expand_pairs")
     check(all(torch.equal(a, b) for a, b in
               zip(kern, expand.expand_pairs_plain(*a1))),
           f"expand differs from its plain version on the {where}")
     errs.setdefault("expand", 0.0)
-    itab, ftab, p_out = a1[:3]
+    itab, p_out = a1[0], a1[2]
     k_ms = cuda_ms(lambda: expand.expand_pairs(*a1))
     alone_ms = timed_alone(lambda: expand.expand_pairs(*a1))
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*a1), reps=3)
-    k1_bytes = itab.numel() * 4 + ftab.numel() * 4 + p_out * 12
     k1_ops = p_out * 16  # index math, clamp, cull per slot
-    rows = [Row("expand", k_ms, alone_ms, pl_ms, k1_bytes, k1_ops)]
+    rows = [Row("expand", k_ms, alone_ms, pl_ms,
+                expand_bytes(itab, p_out, False), k1_ops,
+                extra={"host_ms": host_ms(lambda: expand.expand_pairs(*a1))})]
+    step1_expand(itab, p_out, alone_ms, "expand", where)
 
     attr_c, tile_start, astart, counts, pal = a2
     attr = without_sync(lambda: pack.align_copy(*a2), "align_copy")
@@ -1119,19 +1193,20 @@ def expand_carry_row(dev, args, errs, where: str):
 
     from tpugs_torch.ops import expand
 
-    got = expand.expand_pairs(*args)
+    got = without_sync(lambda: expand.expand_pairs(*args),
+                       "expand_pairs (carry mode)")
     check(all(torch.equal(a, b) for a, b in
               zip(got, expand.expand_pairs_plain(*args))),
           f"K1b differs from its plain version on the {where}")
     errs["expand_carry"] = 0.0
-    itab, ftab, p_out = args[:3]
-    atab = args[7]
+    itab, p_out = args[0], args[2]
     k_ms = cuda_ms(lambda: expand.expand_pairs(*args))
     alone_ms = timed_alone(lambda: expand.expand_pairs(*args))
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*args), reps=3)
-    nbytes = (itab.numel() + ftab.numel() + atab.numel()) * 4 + p_out * 12 \
-        + p_out * 36
-    return Row("expand_carry", k_ms, alone_ms, pl_ms, nbytes, p_out * 16)
+    step1_expand(itab, p_out, alone_ms, "expand_carry", where)
+    return Row("expand_carry", k_ms, alone_ms, pl_ms,
+               expand_bytes(itab, p_out, True), p_out * 16,
+               extra={"host_ms": host_ms(lambda: expand.expand_pairs(*args))})
 
 
 def phase_carry(dev, cli_params, errs):
@@ -1211,13 +1286,15 @@ def large_scene_params(dev):
 def phase_large_scene(dev, errs):
     """The port's train step at N = 2^24 (the garden shape; the classic
     branch, K4b and K6 once per step, K4 and K5 never): 2 warm-up and 5
-    timed steps, peak memory; K4b and K6 held against their plain versions
-    on step 0's inputs and timed there (their rows of the kernels line).
-    Returns (rows, launches, ms per step, peak GB)."""
+    timed steps, peak memory; K4b, K6 and K1 held against their plain
+    versions on step 0's inputs and timed there (K4b's and K6's rows of the
+    kernels line, K1's 2^24 figures), and the table build timed.
+    Returns (rows, launches, ms per step, peak GB, the expand row's 2^24
+    figures)."""
     import numpy as np
     import torch
 
-    from tpugs_torch.ops import composite_t, segreduce
+    from tpugs_torch.ops import composite_t, expand, segreduce
     from tpugs_torch.ops.render import RasterConfig
     from tpugs_torch.optim.adam import adam_init
     from tpugs_torch.optim.densify_adc import adc_init
@@ -1248,7 +1325,8 @@ def phase_large_scene(dev, errs):
     torch.cuda.synchronize()
     reset_launches()
     with capturing(composite_t, "composite_backward", entry_major) as k4b, \
-            capturing(segreduce, "segment_reduce") as k6:
+            capturing(segreduce, "segment_reduce") as k6, \
+            capturing(expand, "expand_pairs") as k1:
         for i in range(steps):
             ev0.record()
             state, stats = train_step(state, target, viewmat, intr,
@@ -1278,7 +1356,74 @@ def phase_large_scene(dev, errs):
     torch.cuda.empty_cache()
     with torch.no_grad():
         rows = classic_kernel_rows(dev, k4b[0], k6[0], errs)
-    return rows, launches, step_ms, peak_gb
+        k1_extra = large_expand(k1[0], errs)
+        del k4b, k6, k1
+        time_table_build(dev)
+    return rows, launches, step_ms, peak_gb, k1_extra
+
+
+def large_expand(a1, errs):
+    """K1 on the 2^24 step's step-0 inputs: held against its plain version
+    (bit-identical), timed as called and alone, and alone on the same
+    inputs cut to their first TRAIN_N gaussians (the same slots: the rest
+    lie behind the camera and own none). Returns the expand row's 2^24
+    figures."""
+    import torch
+
+    from tpugs_torch.ops import expand
+
+    itab, ftab, p_out = a1[:3]
+    got = expand.expand_pairs(*a1)
+    check(all(torch.equal(a, b) for a, b in
+              zip(got, expand.expand_pairs_plain(*a1))),
+          "K1 differs from its plain version on the 2^24 step's frame")
+    errs.setdefault("expand", 0.0)
+    k_ms = cuda_ms(lambda: expand.expand_pairs(*a1))
+    alone_ms = timed_alone(lambda: expand.expand_pairs(*a1))
+    cut = (itab[:, :TRAIN_N].contiguous(), ftab[:, :TRAIN_N].contiguous()) \
+        + tuple(a1[2:])
+    check(all(torch.equal(a, b) for a, b in
+              zip(expand.expand_pairs(*cut), got)),
+          "the 2^24 frame's expansion cut to its first 1M gaussians differs")
+    cut_ms = timed_alone(lambda: expand.expand_pairs(*cut))
+    bound_ms, bound_by = bound(expand_bytes(itab, p_out, False), p_out * 16)
+    step1_expand(itab, p_out, alone_ms, "expand", "2^24 step 0")
+    print(f"2^24 train frame expand: {k_ms:.4f} ms as called, "
+          f"{alone_ms:.4f} ms alone, bound {bound_ms:.4f} ms ({bound_by}), "
+          f"bit-identical to its plain version; cut to its first {TRAIN_N} "
+          f"gaussians (the same {p_out} slots) {cut_ms:.4f} ms alone",
+          flush=True)
+    return {"ms_2p24": k_ms, "alone_ms_2p24": alone_ms,
+            "bound_ms_2p24": bound_ms, "alone_ms_2p24_cut_1m": cut_ms}
+
+
+def time_table_build(dev):
+    """binning.expand_inputs, which builds the expand kernel's itab and
+    ftab (rects, cull radii, the offsets' cumsum, two stacks, the host
+    read of the pair count), timed on the garden frame's projection at 1M
+    and at 2^24 gaussians (CUDA events around each call)."""
+    import torch
+
+    from tpugs_torch.ops import binning as B
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(TRAIN_W, TRAIN_H)).to(dev)
+    ms = {}
+    for label, make in (("1M", garden_params), ("2^24", large_scene_params)):
+        p = make(dev)
+        n = p["means"].shape[0]
+        proj = project_gaussians(*[p[k] for k in NAMES],
+                                 torch.ones(n, dtype=torch.bool, device=dev),
+                                 torch.eye(4, device=dev), intr, TRAIN_W,
+                                 TRAIN_H, 3)
+        del p
+        ms[label] = cuda_ms(lambda: B.expand_inputs(
+            proj, TRAIN_W, TRAIN_H, 32, 32, TRAIN_PAIR_CAPACITY))
+        del proj
+    print(f"table build (binning.expand_inputs) on the garden frame: 1M "
+          f"{ms['1M']:.4f} ms, 2^24 {ms['2^24']:.4f} ms (its host read of "
+          f"the pair count included)", flush=True)
 
 
 def classic_kernel_rows(dev, a4b, a6, errs):
@@ -1531,8 +1676,11 @@ def main() -> int:
             print_rows(carry_rows, "train frame")
         del params
         with Phase("large-scene", 600):
-            large_rows, large_launches, _, _ = phase_large_scene(dev, errs)
+            large_rows, large_launches, _, _, k1_large = phase_large_scene(
+                dev, errs)
             print_rows(large_rows, "2^24 train frame")
+        rows = [r._replace(extra={**r.extra, **k1_large})
+                if r.name == "expand" else r for r in rows]
         with Phase("train-cli", 900):
             train_cli_launches = phase_train_cli(tmp, dev)
     torch.cuda.synchronize()

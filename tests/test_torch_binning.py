@@ -8,12 +8,14 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_carry import _by_pair
 from tests.torch_parity import (assert_segments_equal, jax_projection, np_,
                                 random_projection, segments, torch_projection)
 from tpugs.ops import binning as JB
 from tpugs.ops.pallas import expand as JEX
 from tpugs_torch.ops import binning as TB
 from tpugs_torch.ops import expand as TEX
+from tpugs_torch.ops import pack as TP
 
 torch.set_num_threads(1)
 
@@ -160,3 +162,91 @@ def test_capacity_helpers(n, pair_capacity):
     assert TEX.expand_capacity(pair_capacity, n) == JEX.expand_capacity(
         pair_capacity, n)
     assert TB._packed_key_shift(n, 2040) == JB._packed_key_shift(n, 2040)
+
+
+def _edge_scene(scene: str, w: int, h: int):
+    """Screen-space scenes at the expand kernel's edges, as numpy: "behind"
+    is 2,000 gaussians in view (a third of them far off screen: visible,
+    but owning no tile) followed by 6,000 behind the camera (invisible, no
+    tile), as pad_behind_camera lays out a large scene's view; "presorted"
+    the same scene in depth order, which interleaves the in-view gaussians
+    that own no tile; "cover" 2,000 in view with gaussian 1,000 covering
+    every tile."""
+    d = random_projection(2000, w, h, 7, big_rects=True)
+    rng = np.random.default_rng(8)
+    if scene == "cover":
+        d["means2d"][1000] = (w / 2, h / 2)
+        d["radii"][1000] = 4 * max(w, h)
+        d["conic"][1000] = (1e-4, 0.0, 1e-4)
+        d["opac"][1000] = 0.9
+        d["visible"][1000] = True
+        return d
+    far = rng.uniform(0, 1, 2000) < 1 / 3
+    d["means2d"][far] = (-10 * w, -10 * h)
+    m = 6000
+    behind = random_projection(m, w, h, 9)
+    behind["visible"][:] = False
+    behind["radii"][:] = 0
+    behind["depths"] = rng.uniform(-10, -2, m).astype(np.float32)
+    return {k: np.concatenate([d[k], behind[k]]) for k in d}
+
+
+@pytest.mark.parametrize("scene", ["behind", "presorted", "cover"])
+def test_expand_edges_match_pallas(monkeypatch, scene):
+    """The port's expansion (expand_pairs_plain, 4-row and carry mode) and
+    bin_gaussians_expand_kernel against tpugs' Pallas expand in interpret
+    mode on long runs of gaussians that own no tile, on their depth-sorted
+    interleaving, and on one gaussian covering every tile cut mid-span by
+    the capacity: the same real pairs (tile, gid, depth, attributes) and
+    bit-identical sorted segments."""
+    w, h, tile = 96, 64, 16
+    d = _edge_scene(scene, w, h)
+    tp, jp = torch_projection(d), jax_projection(d)
+    presorted = scene == "presorted"
+    if presorted:
+        tp, jp = TB.presort_by_depth(tp)[1], JB.presort_by_depth(jp)[1]
+    full = TB.expand_inputs(tp, w, h, tile, tile, 1 << 24)
+    off, cnt = np_(full.itab[0]), np_(full.itab[1])
+    cap = CAP
+    if scene == "cover":
+        assert cnt[1000] == _num_tiles(w, h, tile)
+        cap = int(off[1000]) + cnt[1000] // 2
+    else:
+        # Behind the camera: a tail of 6,000 that own no tile; in view, runs
+        # of such gaussians between owners.
+        assert (cnt[-6000:] == 0).all()
+        owners = np.flatnonzero(cnt)
+        assert (cnt[owners[0]:owners[-1]] == 0).sum() > 100
+    outs = []
+    orig = JEX.expand_pairs_pallas
+
+    def recorded(*a, **kw):
+        outs.append(np.asarray(orig(*a, **kw)))
+        return outs[-1]
+
+    monkeypatch.setattr(JEX, "expand_pairs_pallas", recorded)
+    ref_b = JB.bin_gaussians_expand_kernel(jp, w, h, tile, tile, cap,
+                                           interpret=True, presorted=presorted,
+                                           carry_attrs=True)
+    ref = outs[0]
+    ex = TB.expand_inputs(tp, w, h, tile, tile, cap, presorted)
+    assert ex.p_out == min(full.total, cap)
+    args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
+    atab = TP.gaussian_attrs(tp.means2d, tp.conic, tp.rgb, tp.opac).T.contiguous()
+    four = TEX.expand_pairs_plain(*args)
+    tile_id, depth, gid, attrs = (np_(x) for x in TEX.expand_pairs_plain(*args, atab))
+    for a, b in zip(four, (tile_id, depth, gid)):
+        np.testing.assert_array_equal(np_(a), b)
+    real = tile_id < ex.num_tiles
+    jreal = ref[3] > 0
+    got = _by_pair(tile_id[real], gid[real], depth[real], attrs[:, real])
+    exp = _by_pair(ref[0, jreal].astype(np.int32),
+                   ref[2, jreal].astype(np.int32), ref[1, jreal],
+                   ref[4:13, jreal])
+    assert got[0].shape[0] > 0 and got[0].shape == exp[0].shape
+    for a, b in zip(got, exp):
+        np.testing.assert_array_equal(a, b)
+    got_b = TB.bin_gaussians_expand_kernel(tp, w, h, tile, tile, cap,
+                                           presorted=presorted)
+    assert_segments_equal(ref_b, got_b, _num_tiles(w, h, tile))
+    assert bool(got_b.overflow) == (scene == "cover")

@@ -13,7 +13,8 @@ from tpugs_torch.ops import binning as TB
 from tpugs_torch.ops import composite_t, expand, pack, segreduce
 from tpugs_torch.ops.projection import project_gaussians
 from tpugs_torch.ops.render import RasterConfig, render
-from tpugs_torch.utils.synthetic import (synthetic_intrinsics_numpy,
+from tpugs_torch.utils.synthetic import (pad_behind_camera,
+                                         synthetic_intrinsics_numpy,
                                          synthetic_params_numpy)
 from tpugs_torch.viewer.camera import orbit_trajectory
 
@@ -33,26 +34,118 @@ def np_(t):
     return t.cpu().numpy()
 
 
-def _proj(dev, w, h, seed, n=2000):
+def _proj(dev, w, h, seed, n=2000, n_total=None):
+    """A seeded scene of n gaussians projected on the identity view; with
+    n_total, followed by n_total - n behind the camera."""
     p = params_from_numpy(synthetic_params_numpy(n, seed=seed), dev)
+    if n_total is not None:
+        p = pad_behind_camera(p, n_total)
+        n = n_total
     return project_gaussians(
         *[p[k] for k in NAMES], torch.ones(n, dtype=torch.bool, device=dev),
         torch.eye(4, device=dev),
         torch.as_tensor(synthetic_intrinsics_numpy(w, h), device=dev), w, h, 3)
 
 
-@pytest.mark.parametrize("tile,qbits,presorted,frac", [
-    (16, 0, False, 1.0), (32, 0, False, 0.5), (16, 32, False, 1.0), (32, 0, True, 1.0),
-])
-def test_expand_kernel_bit_identical(dev, tile, qbits, presorted, frac):
-    proj = _proj(dev, 192, 128, 0)
+def _frame_expand(proj, tile, frac=1.0, presorted=False, qbits=0):
+    """The expand kernel's arguments for a projected frame at 192x128, the
+    capacity at `frac` of its pairs."""
     if presorted:
         proj = TB.presort_by_depth(proj)[1]
     total = TB.expand_inputs(proj, 192, 128, tile, tile, 1 << 24).total
     ex = TB.expand_inputs(proj, 192, 128, tile, tile, int(total * frac),
                           presorted, qbits)
-    args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
-    for a, b in zip(expand.expand_pairs(*args), expand.expand_pairs_plain(*args)):
+    atab = pack.gaussian_attrs(proj.means2d, proj.conic, proj.rgb,
+                               proj.opac).T.contiguous()
+    return (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile), atab
+
+
+def _table_expand(dev, n, ntx, nty, seed, zero=(), cover=(), cut=None):
+    """The expand kernel's arguments for a synthetic table of n gaussians on
+    an ntx x nty grid of 16-pixel tiles: rects of up to 3 x 3 tiles, centres
+    and cull radii that cull some of their corners, count 0 for the
+    gaussians in `zero` (w stays >= 1), every tile for those in `cover`.
+    cut(offsets, counts) -> p_out, else every pair."""
+    rng = np.random.default_rng(seed)
+    w = np.minimum(rng.integers(1, 4, n), ntx)
+    h = np.minimum(rng.integers(1, 4, n), nty)
+    tx0 = rng.integers(0, ntx - w + 1)
+    ty0 = rng.integers(0, nty - h + 1)
+    cover = list(cover)
+    tx0[cover], ty0[cover], w[cover], h[cover] = 0, 0, ntx, nty
+    cnt = w * h
+    cnt[list(zero)] = 0
+    off = np.cumsum(cnt) - cnt
+    p_out = int(cnt.sum()) if cut is None else cut(off, cnt)
+    gx = (tx0 + rng.uniform(0, 1, n) * w) * 16
+    gy = (ty0 + rng.uniform(0, 1, n) * h) * 16
+    r2 = (rng.uniform(0.3, 1.5, n) * 16 * np.maximum(w, h)) ** 2
+    itab = np.stack([off, cnt, tx0, ty0, w]).astype(np.int32)
+    ftab = np.stack([gx, gy, r2, rng.uniform(0.5, 20, n)]).astype(np.float32)
+    atab = rng.normal(size=(expand.ATAB_ROWS, n)).astype(np.float32)
+    itab, ftab, atab = (torch.from_numpy(a).to(dev) for a in (itab, ftab, atab))
+    return (itab, ftab, p_out, ntx * nty, ntx, 16, 16), atab
+
+
+def _zero_runs(n, seed):
+    """Gaussians that own no slot: four whole chunks of 512 (eight of 256),
+    a third of the rest at random, runs of 5 to 40 across warp bounds and
+    a tail of 800, as behind the camera."""
+    rng = np.random.default_rng(seed)
+    zero = set(range(1024, 3072)) | set(range(n - 800, n))
+    zero |= set(np.flatnonzero(rng.uniform(0, 1, n) < 1 / 3).tolist())
+    for start in rng.integers(0, n - 40, 20):
+        zero |= set(range(start, start + rng.integers(5, 41)))
+    return sorted(zero)
+
+
+# The expand kernel's edges (csrc/expand.cu: one block per chunk of 512
+# gaussians, 256 in carry mode): names -> the kernel's arguments and an
+# attribute table for carry mode.
+EXPAND_EDGES = {
+    # Long runs of count-0 gaussians: whole chunks, partial warps, a tail;
+    # n = 5000 is no multiple of the chunk.
+    "zero-runs": lambda dev: _table_expand(dev, 5000, 12, 8, 0,
+                                           zero=_zero_runs(5000, 0)),
+    # One gaussian (and a second) on every tile of a 1080p frame at tiles
+    # of 16: its span crosses several chunks' worth of slots.
+    "cover": lambda dev: _table_expand(dev, 3000, 120, 68, 1, cover=(700, 2500),
+                                       zero=range(100, 400)),
+    # p_out inside the covering gaussian's span, so inside its chunk.
+    "cut-in-gaussian": lambda dev: _table_expand(
+        dev, 3000, 120, 68, 2, cover=(1500,),
+        cut=lambda off, cnt: int(off[1500] + cnt[1500] // 3)),
+    # p_out at the first slot of gaussian 1024: the chunks from there on
+    # start at or past it.
+    "cut-at-chunk": lambda dev: _table_expand(
+        dev, 5000, 12, 8, 3, cut=lambda off, cnt: int(off[1024])),
+    "n1": lambda dev: _table_expand(dev, 1, 12, 8, 4),
+    "n0": lambda dev: _table_expand(dev, 0, 12, 8, 5),
+    "p0": lambda dev: _table_expand(dev, 100, 12, 8, 6, cut=lambda o, c: 0),
+    # A projected scene of 2000 followed by 5000 behind the camera, as
+    # pad_behind_camera lays out the 2^24 step; then in depth order, where
+    # the gaussians that own no tile interleave.
+    "behind": lambda dev: _frame_expand(_proj(dev, 192, 128, 0, 2000, 7000), 16),
+    "behind-presorted": lambda dev: _frame_expand(
+        _proj(dev, 192, 128, 0, 2000, 7000), 32, presorted=True),
+}
+
+
+@pytest.mark.parametrize("case", [
+    (16, 0, False, 1.0), (32, 0, False, 0.5), (16, 32, False, 1.0), (32, 0, True, 1.0),
+    *EXPAND_EDGES])
+def test_expand_kernel_bit_identical(dev, case):
+    """K1 against its plain version: frames at tiles of 16 and 32 (tile,
+    qbits, presorted, capacity fraction) and the kernel's edges."""
+    if isinstance(case, str):
+        args, _ = EXPAND_EDGES[case](dev)
+    else:
+        tile, qbits, presorted, frac = case
+        args, _ = _frame_expand(_proj(dev, 192, 128, 0), tile, frac, presorted,
+                                qbits)
+    got = expand.expand_pairs(*args)
+    assert all(x.shape == (args[2],) for x in got)
+    for a, b in zip(got, expand.expand_pairs_plain(*args)):
         assert torch.equal(a, b)
 
 
@@ -199,12 +292,18 @@ def test_contract_violation_raises(dev, case):
 
 
 @pytest.mark.parametrize("kernel", ["align_copy", "segment_reduce",
-                                    "composite_forward", "composite_backward"])
+                                    "composite_forward", "composite_backward",
+                                    "expand", "expand_carry"])
 def test_wrapper_makes_no_host_read(dev, kernel):
     """K2's, K6's, K3's and K4's wrappers check their inputs' contract on
-    the card: a call makes the host wait for the device nowhere (torch's
-    sync debug mode raises where an operation would)."""
-    if kernel.startswith("composite"):
+    the card, and K1's reads nothing back either: a call makes the host
+    wait for the device nowhere (torch's sync debug mode raises where an
+    operation would)."""
+    if kernel.startswith("expand"):
+        args, atab = EXPAND_EDGES["zero-runs"](dev)
+        args += (atab,) if kernel == "expand_carry" else ()
+        call = lambda: expand.expand_pairs(*args)
+    elif kernel.startswith("composite"):
         cfg, astart, astop, attr = (a.to(dev) if isinstance(a, torch.Tensor)
                                     else a for a in _walk_scene(32, 32, 2))
         _, final_t, _, k_last = composite_t.composite_forward(cfg, astart,
@@ -576,23 +675,30 @@ def test_interval_sum_kernel_bit_identical(dev, n, span, empty, offset):
     np.testing.assert_allclose(np_(got), ref.numpy(), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("tile,frac", [(16, 1.0), (32, 0.5)])
-def test_expand_carry_kernel_bit_identical(dev, tile, frac):
-    """K1b: the expand kernel in carry mode against its plain version, and
-    binning's carried attr_c against the gathered pack."""
-    proj = _proj(dev, 192, 128, 6)
-    total = TB.expand_inputs(proj, 192, 128, tile, tile, 1 << 24).total
-    ex = TB.expand_inputs(proj, 192, 128, tile, tile, int(total * frac))
-    atab = pack.gaussian_attrs(proj.means2d, proj.conic, proj.rgb,
-                               proj.opac).T.contiguous()
-    args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile, atab)
-    for a, b in zip(expand.expand_pairs(*args), expand.expand_pairs_plain(*args)):
+@pytest.mark.parametrize("case", [(16, 1.0), (32, 0.5), *EXPAND_EDGES])
+def test_expand_carry_kernel_bit_identical(dev, case):
+    """K1b: the expand kernel in carry mode against its plain version, on
+    frames at tiles of 16 and 32 (tile, capacity fraction) and the kernel's
+    edges; on the frames also binning's carried attr_c against the
+    gathered pack."""
+    if isinstance(case, str):
+        args, atab = EXPAND_EDGES[case](dev)
+    else:
+        tile, frac = case
+        proj = _proj(dev, 192, 128, 6)
+        args, atab = _frame_expand(proj, tile, frac)
+    got = expand.expand_pairs(*args, atab)
+    assert got[3].shape == (expand.ATAB_ROWS, args[2])
+    for a, b in zip(got, expand.expand_pairs_plain(*args, atab)):
         assert torch.equal(a, b)
-    b = TB.bin_gaussians_expand_kernel(proj, 192, 128, tile, tile, ex.p_out,
+    if isinstance(case, str):
+        return
+    tile, p_out, num_tiles = args[5], args[2], args[3]
+    b = TB.bin_gaussians_expand_kernel(proj, 192, 128, tile, tile, p_out,
                                        carry_attrs=True)
     packed = pack.pack_compact_attrs(b.pair_gauss, proj.means2d, proj.conic,
                                      proj.rgb, proj.opac, b.pair_gauss.shape[0])
-    real = b.pair_tile < ex.num_tiles
+    real = b.pair_tile < num_tiles
     assert torch.equal(b.attr_c[:, real], packed[:11, real])
 
 
