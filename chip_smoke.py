@@ -51,7 +51,24 @@ a nonzero exit:
   5. the train CLI (tpugs_torch.apps.train.main, --no-densify) for 20 steps
      on a 4-view 1297x840 GT dataset of a 1M-gaussian model with 1M sparse
      points; finite losses, no overflow left, every step through the sorted
-     path's five kernels, and its last checkpoint loads.
+     path's five kernels, and its last checkpoint loads;
+  6. densification and evaluation (train-densify): a 16-view 1297x840 GT
+     dataset of the 1M model with 140,000 sparse points, capacity 2^22.
+     The train CLI with no densify flag (ADC) for 120 steps (densify every
+     20 from 20 to 100, an opacity reset at 60, size pruning after it, an
+     evaluation of the 2 test views at 60): events that clone or split
+     and that prune, N grown, the checkpoint's alive count the last
+     event's N, K1-K5 once per step and K1-K3 once per eval render, finite
+     losses, PSNR and SSIM, no overflow left; then --mcmc for 100 steps
+     (relocate and grow every 20 from 20): relocations, N grown by
+     grow_factor, K1-K5 once per step. The first ADC event's state, and
+     the first and last MCMC events' states, go through adc_densify and
+     relocate + grow on the card and on the CPU with the same draws:
+     masks, stats and slot assignment identical, params within 2e-5. Times
+     each event (CUDA events), the ADC step before the first event and
+     after the last, each eval view; counts the host syncs of one ADC
+     step against one step without densification (equal), and of one
+     densify and one relocate event (none).
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -67,7 +84,8 @@ frames): the gaussians that own no slot, slots per owner, the lane use of
 a warp per gaussian and the slot spans of the kernel's chunks.
 Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
-2^24 train step; K1b: the carried train frame) and on every path driven,
+2^24 train step; K1b: the carried train frame) and on every path driven
+(the ADC and MCMC CLI runs and the ADC run's evaluation among them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -78,6 +96,7 @@ import contextlib
 import faulthandler
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -112,6 +131,19 @@ TRAIN_CLI_VIEWS, TRAIN_CLI_STEPS = 4, 20
 # first N that takes the classic backward branch.
 LARGE_N = 1 << 24
 LARGE_WARMUP, LARGE_STEPS = 2, 5
+# Densification and evaluation at the garden shape: a GT dataset of the 1M
+# model in 16 views (views 0 and 8 the test split), trained from 140,000
+# sparse points (the order of a Mip-NeRF 360 scene's SfM cloud) at a
+# capacity of 2^22, as a run sized for a real scene would be.
+DENSIFY_VIEWS, DENSIFY_POINTS, DENSIFY_CAPACITY = 16, 140_000, 1 << 22
+ADC_STEPS, MCMC_STEPS = 120, 100
+# densify_until 120 with the default skip_final_reset lets the reset at 60
+# fire (it leaves a full period of events); the events are at 20..100.
+ADC_CONFIG = {"eval_every": 60, "adc": {
+    "densify_from": 20, "densify_every": 20, "densify_until": 120,
+    "opacity_reset_every": 60}}
+MCMC_CONFIG = {"mcmc": {"relocate_from": 20, "relocate_every": 20}}
+EVENT_RTOL = 2e-5  # card vs CPU event params: exp, log, pow ulps
 
 _T0 = time.perf_counter()
 
@@ -961,7 +993,7 @@ def phase_train_step(dev, errs):
                        alive=torch.ones(n, dtype=torch.bool, device=dev),
                        adam=adam_init(params), adc=adc_init(n, dev),
                        key=initial_key(0))
-    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg, 1.0)
     viewmat = torch.eye(4, device=dev)
     intr = torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev)
     target = torch.rand((h, w, 3), device=dev,
@@ -1313,7 +1345,7 @@ def phase_large_scene(dev, errs):
                        alive=torch.ones(n, dtype=torch.bool, device=dev),
                        adam=adam_init(params), adc=adc_init(n, dev),
                        key=initial_key(0))
-    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg, 1.0)
     viewmat = torch.eye(4, device=dev)
     intr = torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev)
     target = torch.rand((h, w, 3), device=dev,
@@ -1605,6 +1637,330 @@ def phase_train_cli(tmp, dev):
     return launches
 
 
+def sync_warnings(fn) -> list:
+    """The operations of fn() that made the host wait for the device
+    (torch's sync debug mode "warn"), as "file:line" of their callers."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def densify_dataset(tmp, dev) -> tuple:
+    """The GT dataset of the densify phase -> (its path, seconds)."""
+    import torch
+
+    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
+
+    ds = os.path.join(tmp, "gt_densify")
+    t0 = time.perf_counter()
+    model = make_gt_model(TRAIN_N, device=dev)
+    write_gt_dataset(ds, model, num_views=DENSIFY_VIEWS, width=TRAIN_W,
+                     height=TRAIN_H, sparse_points=DENSIFY_POINTS,
+                     sh_degree=3)
+    del model
+    torch.cuda.synchronize()
+    return ds, time.perf_counter() - t0
+
+
+def run_train_cli(tmp, ds, name: str, config: dict, steps: int, extra=()):
+    """The train CLI on ds with `config` as its -c file. Records the
+    Trainer, the state and arguments of its first and last events, each
+    event's device time (CUDA events), the prune causes before each ADC
+    event and each evaluation with its launches. Returns (log text,
+    launches of the run, record)."""
+    import torch
+
+    from tpugs_torch.apps import train as train_app
+    from tpugs_torch.optim.densify_adc import WS_PRUNE_FRACTION
+    from tpugs_torch.train import trainer as trainer_mod
+
+    rec = {"events_ms": [], "evals": [], "first": None, "trainer": None,
+           "prune_causes": []}
+    base = trainer_mod.Trainer
+    pending = []
+
+    def prune_causes(tr, state):
+        """The alive gaussians an ADC event would prune for each cause
+        (opacity, screen radius, world size), left on the device."""
+        cfg = tr.cfg.adc
+        a = state.alive
+        big = torch.amax(torch.exp(state.params["log_scales"]), dim=-1)
+        return torch.stack([torch.sum(a & (torch.sigmoid(
+            state.params["opacity_logits"]) < cfg.opacity_threshold)),
+            torch.sum(a & (state.adc.max_radii > cfg.max_screen_size)),
+            torch.sum(a & (big > WS_PRUNE_FRACTION * tr.scene_extent))])
+
+    def timed(tr, fn):
+        def event(state, **kw):
+            if rec["first"] is None:
+                rec["first"] = (state, kw)
+            rec["last"] = (state, kw)
+            if tr.cfg.densify_mode == "adc":
+                rec["prune_causes"].append(prune_causes(tr, state))
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = fn(state, **kw)
+            t1.record()
+            pending.append((t0, t1))
+            return out
+        return event
+
+    class Recorded(base):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            rec["trainer"] = self
+            self._densify = timed(self, self._densify)
+            self._relocate = timed(self, self._relocate)
+
+        def evaluate(self, sh_degree=None):
+            before = read_launches()
+            res = super().evaluate(sh_degree)
+            after = read_launches()
+            rec["evals"].append((res, {k: after[k] - before[k]
+                                       for k in after}))
+            return res
+
+    cfg_path = os.path.join(tmp, f"{name}.json")
+    with open(cfg_path, "w") as f:
+        json.dump(config, f)
+    out_dir = os.path.join(tmp, f"{name}_out")
+    argv = ["-d", ds, "-o", out_dir, "-c", cfg_path, "-i", str(steps),
+            "--capacity", str(DENSIFY_CAPACITY), "--sh-degree", "3",
+            "--log-every", "20", "--save-every", "0", "--max-hits",
+            str(TRAIN_MAX_HITS), "--device", "cuda", *extra]
+    log = io.StringIO()
+    trainer_mod.Trainer = Recorded
+    reset_launches()
+    try:
+        with contextlib.redirect_stdout(log):
+            rc = train_app.main(argv)
+    finally:
+        trainer_mod.Trainer = base
+    launches = read_launches()
+    torch.cuda.synchronize()
+    rec["events_ms"] = [a.elapsed_time(b) for a, b in pending]
+    rec["prune_causes"] = [c.tolist() for c in rec["prune_causes"]]
+    rec["out_dir"] = out_dir
+    check(rc == 0, f"{name}: train CLI returned {rc}")
+    text = log.getvalue()
+    for line in text.splitlines():
+        print(f"{name}: {line}", flush=True)
+    hist = [json.loads(x) for x in open(os.path.join(out_dir,
+                                                     "history.jsonl"))]
+    check([r["step"] for r in hist] == list(range(0, steps, 20)),
+          f"{name}: history steps {[r['step'] for r in hist]}")
+    check(all(math.isfinite(r["loss"]) for r in hist),
+          f"{name}: non-finite loss")
+    last_log = [ln for ln in text.splitlines()
+                if ln.startswith(f"[{hist[-1]['step']}] loss=")]
+    check(f"[{steps}] OVERFLOW" not in text and len(last_log) == 1
+          and "OVERFLOW" not in last_log[0],
+          f"{name}: overflow left after the grow policy")
+    m = re.search(r"trained (\d+) iters in ([\d.]+)s \(([\d.]+) it/s\)", text)
+    check(m is not None and int(m.group(1)) == steps,
+          f"{name}: no 'trained' line")
+    rec["its"] = float(m.group(3))
+    rec["n0"] = hist[0]["n"]
+    rec["losses"] = [r["loss"] for r in hist]
+    return text, launches, rec
+
+
+def event_on_card_and_cpu(dev, kind: str, tr, recorded):
+    """An event's recorded state through adc_densify (kind "densify") or
+    relocate + grow ("relocate") on the card and on the CPU with the same
+    pre-drawn draws: masks, stats and slot assignment identical, params
+    within EVENT_RTOL. Returns the CPU's seconds."""
+    import torch
+
+    from tpugs_torch.optim.densify_adc import ADCState, adc_densify
+    from tpugs_torch.optim.densify_mcmc import grow, relocate
+
+    state, kw = recorded
+    nc = state.alive.shape[0]
+    cfg, extent = tr.cfg, tr.scene_extent
+    gen = torch.Generator().manual_seed(0)
+    draws = (torch.randn((2, nc, 3), generator=gen),
+             torch.rand((2, nc), generator=gen))
+    outs, cpu_s = [], 0.0
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        p = {k: v.to(d) for k, v in state.params.items()}
+        alive = state.alive.to(d)
+        noise, u = (x.to(d) for x in draws)
+        if kind == "densify":
+            adc = ADCState(*(getattr(state.adc, f).to(d) for f in
+                             ("grad_accum", "grad_count", "max_radii")))
+            p, alive2, changed, _, stats = adc_densify(
+                cfg.adc, p, alive, adc, extent, kw["size_pruning_active"],
+                noise1=noise[0], noise2=noise[1])
+            masks = (alive2, changed)
+        else:
+            p, changed, stats = relocate(cfg.mcmc, p, alive, extent, u=u[0],
+                                         jitter=noise[0])
+            p, alive2, grown, n_new = grow(cfg.mcmc, p, alive, extent,
+                                           u=u[1], jitter=noise[1])
+            stats = dict(stats, num_added=n_new)
+            masks = (changed, alive2, grown)
+        outs.append((p, masks, {k: int(v) for k, v in stats.items()}))
+        cpu_s = time.perf_counter() - t0
+    (p, masks, stats), (rp, rmasks, rstats) = outs
+    check(stats == rstats, f"{kind}: stats on the card {stats}, CPU {rstats}")
+    for a, b in zip(masks, rmasks):
+        check(torch.equal(a.cpu(), b), f"{kind}: a mask differs card/CPU")
+    copied = ("quats", "sh") + (("opacity_logits",) if kind == "densify"
+                                else ("means",) if cfg.mcmc.exact_relocation
+                                else ())
+    for k, v in p.items():
+        v = v.cpu()
+        if k in copied:
+            check(torch.equal(v, rp[k]), f"{kind}: {k} rows differ card/CPU")
+        else:
+            err = float(((v - rp[k]).abs()
+                         / rp[k].abs().clamp(min=1e-6)).max())
+            check(err <= EVENT_RTOL, f"{kind}: {k} rel err {err:.3g} card/CPU")
+    print(f"{kind} event card vs CPU on an event's state (Nc {nc}): "
+          f"identical masks and stats {stats}; CPU {cpu_s:.1f} s",
+          flush=True)
+    return cpu_s
+
+
+def phase_train_densify(tmp, dev, card):
+    """The train CLI with ADC (its default) and with --mcmc on the densify
+    dataset, with evaluation; returns the launches of the ADC run, of its
+    evaluations and of the MCMC run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from tpugs_torch.io.checkpoint import load_train_checkpoint
+    from tpugs_torch.train.trainer import (make_densify_step,
+                                           make_relocate_step,
+                                           make_train_step)
+
+    ds, write_s = densify_dataset(tmp, dev)
+    print(f"densify dataset: {DENSIFY_VIEWS} views {TRAIN_W}x{TRAIN_H} of a "
+          f"1M GT model, {DENSIFY_POINTS} sparse points: {write_s:.1f} s",
+          flush=True)
+
+    # ADC: the CLI's default mode.
+    text, adc_launches, rec = run_train_cli(tmp, ds, "adc", ADC_CONFIG,
+                                            ADC_STEPS)
+    ev = [tuple(map(int, m)) for m in re.findall(
+        r"\[(\d+)\] densify: \+(\d+) cloned, \+(\d+) split, -(\d+) pruned, "
+        r"N=(\d+)", text)]
+    check([e[0] for e in ev] == [20, 40, 60, 80, 100],
+          f"densify events at {[e[0] for e in ev]}")
+    check("[60] opacity reset" in text, "no opacity reset at 60")
+    check(any(e[1] + e[2] > 0 for e in ev), "no event cloned or split")
+    check(any(e[3] > 0 for e in ev), "no event pruned")
+    before = [rec["n0"]] + [e[4] for e in ev[:-1]]
+    check(any(e[4] > n for e, n in zip(ev, before)),
+          f"N {rec['n0']} -> {[e[4] for e in ev]}: no event grew N")
+    state, step = load_train_checkpoint(
+        os.path.join(rec["out_dir"], f"ckpt_{ADC_STEPS:07d}.npz"), dev)
+    check(step == ADC_STEPS and int(state.alive.sum()) == ev[-1][4],
+          f"checkpoint alive {int(state.alive.sum())}, last event N "
+          f"{ev[-1][4]}")
+    check(all(bool(torch.isfinite(v).all()) for v in state.params.values()),
+          "checkpoint params not finite")
+    del state
+    eval_grows = len(re.findall(r"eval view .* -> growing", text))
+    check(len(rec["evals"]) == 1, f"{len(rec['evals'])} evaluations")
+    eval_launches = {k: sum(e[1][k] for e in rec["evals"])
+                     for k in adc_launches}
+    renders = 2 * len(rec["evals"]) + eval_grows
+    check_launches(eval_launches, ("expand", "align_copy", "composite_fwd"),
+                   renders, "eval renders")
+    check_launches({k: adc_launches[k] - eval_launches[k]
+                    for k in adc_launches}, SORTED_PATH, ADC_STEPS,
+                   "ADC steps")
+    for res, _ in rec["evals"]:
+        check(len(res.images) == 2 and all(
+            math.isfinite(r.psnr) and math.isfinite(r.ssim)
+            for r in res.images), "eval: not 2 finite views")
+    eval_ms = [r.render_ms for res, _ in rec["evals"] for r in res.images]
+
+    tr, first = rec["trainer"], rec["first"]
+    images = tr._image_bank()
+    args = (images[0], tr._viewmats[0], tr._intrinsics[0],
+            torch.tensor(100.0), 0)
+    adc_step = tr._train_step
+    none_step = make_train_step(dataclasses.replace(
+        tr.cfg, densify_mode="none"), tr.raster, tr.scene_extent)
+    step_ms = [cuda_ms(lambda: adc_step(st, *args), reps=5, warmup=1)
+               for st in (first[0], tr.state)]
+    syncs = []
+    for fn in (adc_step, none_step):
+        fn(tr.state, *args)
+        torch.cuda.synchronize()
+        syncs.append(sync_warnings(lambda: fn(tr.state, *args)))
+    check(len(syncs[0]) == len(syncs[1]), f"sync warnings: ADC step "
+          f"{syncs[0]}, none step {syncs[1]}")
+    densify = make_densify_step(tr.cfg, tr.scene_extent)
+    event_syncs = sync_warnings(lambda: densify(
+        tr.state, size_pruning_active=True))
+    check(not event_syncs, f"a densify event synchronised: {event_syncs}")
+    torch.cuda.synchronize()
+    event_on_card_and_cpu(dev, "densify", tr, first)
+    print(f"ADC train CLI ({card}): {rec['its']:.2f} it/s over {ADC_STEPS} "
+          f"steps; N {rec['n0']} -> {ev[-1][4]}; events {ev}; densify "
+          f"event ms at Nc {DENSIFY_CAPACITY} {rec['events_ms']} (mean "
+          f"{np.mean(rec['events_ms']):.3f}); alive gaussians below the "
+          f"opacity threshold, past 20 px, past 0.1 extent at each event "
+          f"{rec['prune_causes']}; ADC step ms at N "
+          f"{rec['n0']} (before the first event) {step_ms[0]:.3f}, at N "
+          f"{ev[-1][4]} (after the last) {step_ms[1]:.3f}; eval ms per view "
+          f"{[round(x, 3) for x in eval_ms]} ({eval_grows} regrows); sync "
+          f"warnings: ADC step {len(syncs[0])}, none step {len(syncs[1])} "
+          f"({syncs[1]}), densify event {len(event_syncs)}; losses {[round(x, 5) for x in rec['losses']]}; "
+          f"launches {adc_launches} (eval {eval_launches})", flush=True)
+    del tr, first, rec, adc_step, none_step, densify, images, args
+
+    # MCMC.
+    text, mcmc_launches, rec = run_train_cli(
+        tmp, ds, "mcmc", MCMC_CONFIG, MCMC_STEPS, ["--mcmc"])
+    ev = [tuple(map(int, m)) for m in re.findall(
+        r"\[(\d+)\] mcmc relocate: (\d+) of (\d+) dead, \+(\d+) grown "
+        r"\(N=(\d+)\)", text)]
+    check([e[0] for e in ev] == [20, 40, 60, 80],
+          f"relocate events at {[e[0] for e in ev]}")
+    check(any(e[1] > 0 for e in ev), "no event relocated")
+    grow_factor = rec["trainer"].cfg.mcmc.grow_factor
+    n_alive = rec["n0"]
+    for e in ev:
+        want = int(np.float32(grow_factor) * np.float32(n_alive))
+        check(e[3] == want and e[4] == n_alive + want,
+              f"event {e}: grew {e[3]}, expected {want} of N {n_alive}")
+        n_alive = e[4]
+    check_launches(mcmc_launches, SORTED_PATH, MCMC_STEPS, "MCMC steps")
+    tr = rec["trainer"]
+    # The first event, and the last (the first may find no dead gaussian).
+    for which in ("first", "last"):
+        event_on_card_and_cpu(dev, "relocate", tr, rec[which])
+    reloc = make_relocate_step(tr.cfg, tr.scene_extent)
+    event_syncs = sync_warnings(lambda: reloc(tr.state))
+    check(not event_syncs, f"a relocate event synchronised: {event_syncs}")
+    print(f"MCMC train CLI ({card}): {rec['its']:.2f} it/s over "
+          f"{MCMC_STEPS} steps; N {rec['n0']} -> {ev[-1][4]}; events {ev}; "
+          f"relocate event ms at Nc {DENSIFY_CAPACITY} {rec['events_ms']} "
+          f"(mean {np.mean(rec['events_ms']):.3f}); relocate event syncs "
+          f"{len(event_syncs)}; losses {[round(x, 5) for x in rec['losses']]}; "
+          f"launches {mcmc_launches}", flush=True)
+    return adc_launches, eval_launches, mcmc_launches
+
+
 def bound(nbytes: int, ops: int):
     """(least ms for this work on the card, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1683,6 +2039,9 @@ def main() -> int:
                 if r.name == "expand" else r for r in rows]
         with Phase("train-cli", 900):
             train_cli_launches = phase_train_cli(tmp, dev)
+        with Phase("train-densify", 900):
+            adc_launches, eval_launches, mcmc_launches = phase_train_densify(
+                tmp, dev, card)
     torch.cuda.synchronize()
     cuda_lib.check_guards()  # no kernel found its inputs out of contract
     table = kernel_table(rows + large_rows + carry_rows, errs, {
@@ -1690,7 +2049,9 @@ def main() -> int:
         "carry_train_frame": carry_launches,
         "classic_garden_frame": classic_launches,
         "scatter_garden_frame": scatter_launches,
-        "train_cli": train_cli_launches, "render_cli": cli_launches})
+        "train_cli": train_cli_launches, "render_cli": cli_launches,
+        "adc_train_cli": adc_launches, "adc_eval": eval_launches,
+        "mcmc_train_cli": mcmc_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import os
 import sys
 import time
@@ -99,7 +100,12 @@ def train_setup(dev, n_total: int = N):
         params=params, alive=torch.ones(n_total, dtype=torch.bool, device=dev),
         adam=adam_init(params), adc=adc_init(n_total, dev),
         key=initial_key(0))
-    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg)
+    # The scene extent sizes ADC's events only; a checkout from before the
+    # step took it (the parent, under time_torch_e2e.py --repo) takes two.
+    extent = ((1.0,) if "scene_extent" in
+              inspect.signature(make_train_step).parameters else ())
+    train_step = make_train_step(TrainConfig(densify_mode="none"), cfg,
+                                 *extent)
     viewmat = torch.eye(4, device=dev)
     intr = torch.from_numpy(synthetic_intrinsics_numpy(W, H)).to(dev)
     target = torch.rand((H, W, 3), device=dev,

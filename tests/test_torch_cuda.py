@@ -745,3 +745,114 @@ def test_render_paths_on_card_match_sorted(dev, monkeypatch, path):
         scale = np.abs(b).max()
         close = np.abs(a - b) <= 1e-3 * np.abs(b) + 1e-4 * scale
         assert close.mean() >= 0.999, (name, close.mean())
+
+
+def _densify_inputs(dev, nc=4096, seed=3):
+    """A capacity-padded state: scales around the clone/split boundary,
+    opacities around the prune and dead thresholds, average gradients
+    around 2e-4 and radii around 20."""
+    from tpugs_torch.optim.densify_adc import ADCState
+
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, 6, nc).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    p = {"means": t(rng.normal(size=(nc, 3))),
+         "quats": t(rng.normal(size=(nc, 4))),
+         "log_scales": t(np.log(rng.uniform(0.002, 0.03, (nc, 3)))),
+         "opacity_logits": t(rng.uniform(-7.0, 3.0, nc)),
+         "sh": t(rng.normal(size=(nc, 3, 4)))}
+    adc = ADCState(grad_accum=t(rng.uniform(0, 6e-4, nc) * count),
+                   grad_count=t(count), max_radii=t(rng.uniform(0, 30, nc)))
+    alive = torch.from_numpy(rng.uniform(size=nc) < 0.6).to(dev)
+    return p, alive, adc
+
+
+def _assert_event_equal(got, ref, copied, rtol=1e-6):
+    """Masks and stats identical, copied rows bit-identical, the rest
+    within rtol (exp and log round differently on the card)."""
+    params, *masks, stats = got
+    rparams, *rmasks, rstats = ref
+    for a, b in zip(masks, rmasks):
+        assert torch.equal(a.cpu(), b)
+    assert {k: int(v) for k, v in stats.items()} == {
+        k: int(v) for k, v in rstats.items()}
+    for k in NAMES:
+        if k in copied:
+            assert torch.equal(params[k].cpu(), rparams[k]), k
+        else:
+            torch.testing.assert_close(params[k].cpu(), rparams[k], rtol=rtol,
+                                       atol=1e-6)
+
+
+@pytest.mark.parametrize("pruning", [False, True])
+def test_densify_on_card_matches_cpu(dev, pruning):
+    """adc_densify on the card and on the CPU with the same noise: the
+    scatters' duplicate (dropped) rows cannot reach a kept slot."""
+    from tpugs_torch.optim.densify_adc import ADCConfig, adc_densify
+
+    gen = torch.Generator().manual_seed(0)
+    n1, n2 = torch.randn((2, 4096, 3), generator=gen)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p, alive, adc = _densify_inputs(d)
+        params, alive2, changed, _, stats = adc_densify(
+            ADCConfig(), p, alive, adc, 2.0, pruning, noise1=n1.to(d),
+            noise2=n2.to(d))
+        out.append((params, alive2, changed, stats))
+    assert int(out[1][3]["num_cloned"]) > 0
+    assert int(out[1][3]["num_split"]) > 0
+    _assert_event_equal(out[0], out[1],
+                        ("quats", "sh", "opacity_logits"))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+def test_relocate_and_grow_on_card_match_cpu(dev, exact):
+    from tpugs_torch.optim.densify_mcmc import MCMCConfig, grow, relocate
+
+    cfg = MCMCConfig(exact_relocation=exact)
+    gen = torch.Generator().manual_seed(1)
+    u = torch.rand((2, 4096), generator=gen)
+    jit = torch.randn((2, 4096, 3), generator=gen)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        p, alive, _ = _densify_inputs(d, seed=4)
+        params, changed, stats = relocate(cfg, p, alive, 2.0, u=u[0].to(d),
+                                          jitter=jit[0].to(d))
+        params, alive2, grown, n_new = grow(cfg, params, alive, 2.0,
+                                            u=u[1].to(d), jitter=jit[1].to(d))
+        out.append((params, changed, alive2, grown,
+                    dict(stats, num_added=n_new)))
+    assert int(out[1][4]["num_relocated"]) > 0
+    assert int(out[1][4]["num_added"]) > 0
+    _assert_event_equal(out[0], out[1],
+                        ("quats", "sh") + (("means",) if exact else ()),
+                        rtol=2e-5)
+
+
+def test_trainer_evaluate_on_card_matches_cpu(dev, tmp_path):
+    """Trainer.evaluate (render without gradients through K1-K3) on the
+    card and on the CPU, after the same 6 ADC steps (no event yet: its
+    noise would come from each device's generator)."""
+    from tpugs_torch.optim.densify_adc import ADCConfig
+    from tpugs_torch.train.trainer import TrainConfig, Trainer
+    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
+
+    root = str(tmp_path / "s")
+    write_gt_dataset(root, make_gt_model(2000, seed=0, device=dev),
+                     num_views=10, width=96, height=64, sparse_points=300)
+    res = []
+    for d in (dev, torch.device("cpu")):
+        cfg = TrainConfig(iterations=12, capacity=1024, sh_degree=1,
+                          log_every=6, save_every=0, pair_capacity=1 << 15,
+                          max_hits_per_tile=256,
+                          output_dir=str(tmp_path / str(len(res))),
+                          adc=ADCConfig(densify_from=6, densify_every=6))
+        assert cfg.densify_mode == "adc"
+        tr = Trainer(root, cfg, log_fn=lambda *_: None, device=d)
+        tr.train(6)
+        res.append(tr.evaluate())
+    a, b = res
+    assert a.num_gaussians == b.num_gaussians == 300
+    assert len(a.images) == 2 and 5.0 < b.mean_psnr < 100.0
+    assert abs(a.mean_psnr - b.mean_psnr) <= 1e-2
+    assert abs(a.mean_ssim - b.mean_ssim) <= 1e-4

@@ -8,6 +8,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,8 +85,6 @@ def _make_gt_model(tmp_path, **kw):
 
 
 def _init_from_sfm(tmp_path, **kw):
-    import numpy as np
-
     from tpugs_torch.core.init import init_from_sfm
 
     pts = np.random.default_rng(0).normal(size=(8, 3)).astype(np.float32)
@@ -106,6 +105,47 @@ def _adc_init(tmp_path, **kw):
     return adc_init(8, **kw)
 
 
+def _event_generator(tmp_path, **kw):
+    from tpugs_torch.train.trainer import DENSIFY_STREAM, event_generator
+
+    return event_generator(np.zeros(2, np.uint32), DENSIFY_STREAM, **kw)
+
+
+def _eval_views(tmp_path, **kw):
+    from tpugs_torch.data.dataset import Dataset
+    from tpugs_torch.train.trainer import eval_views
+
+    root, _ = _train_scene(tmp_path)
+    return eval_views(Dataset(root), **kw)
+
+
+def _train_state(tmp_path, **kw):
+    from tpugs_torch.core.gaussians import train_state_from_numpy
+
+    z = np.zeros
+    flat = {f"{g}/{k}": z(s, np.float32) for g in ("params", "adam_m", "adam_v")
+            for k, s in (("means", (4, 3)), ("quats", (4, 4)),
+                         ("log_scales", (4, 3)), ("opacity_logits", (4,)),
+                         ("sh", (4, 3, 1)))}
+    flat.update(alive=z(4, bool), adam_count=np.int32(0),
+                key=z(2, np.uint32), adc_grad_accum=z(4, np.float32),
+                adc_grad_count=z(4, np.float32), adc_max_radii=z(4, np.float32))
+    return train_state_from_numpy(flat, **kw)
+
+
+def _tensors(out):
+    """The tensors and generators in out, one level into containers."""
+    if isinstance(out, (torch.Tensor, torch.Generator)):
+        return [out]
+    if isinstance(out, dict):
+        return [t for v in out.values() for t in _tensors(v)]
+    if isinstance(out, (list, tuple)):
+        return [t for v in out for t in _tensors(v)]
+    if hasattr(out, "__dict__"):
+        return [t for v in vars(out).values() for t in _tensors(v)]
+    return []
+
+
 def _load_checkpoint(tmp_path, **kw):
     from tpugs_torch.io.checkpoint import (load_train_checkpoint,
                                            save_train_checkpoint)
@@ -122,18 +162,16 @@ def _load_checkpoint(tmp_path, **kw):
 
 
 @pytest.mark.parametrize("make", [_make_gt_model, _init_from_sfm, _create,
-                                  _adc_init, _load_checkpoint])
+                                  _adc_init, _load_checkpoint, _train_state,
+                                  _event_generator, _eval_views])
 def test_state_helpers_default_to_the_card(make, monkeypatch, tmp_path):
-    """The helpers that put model or train state on a device take the card
+    """The helpers that put model or train state, the densify and relocate
+    events' generators or the evaluation's views on a device take the card
     unless the CPU is asked for, as the entry points do."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make(tmp_path)
-    out = make(tmp_path, device="cpu")
-    tensors = (list(out.values()) if isinstance(out, dict)
-               else [v for v in vars(out).values() if isinstance(v, torch.Tensor)]
-               + [v for d in vars(out).values() if isinstance(d, dict)
-                  for v in d.values()])
+    tensors = _tensors(make(tmp_path, device="cpu"))
     assert tensors and all(t.device.type == "cpu" for t in tensors)
 
 
@@ -338,8 +376,6 @@ def test_train_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ([], "densify_mode='adc'.*not yet ported.*A8"),
-    (["--mcmc"], "densify_mode='mcmc'.*not yet ported.*A8"),
     (["--no-densify", "--mesh", "data=2"], "mesh.*not yet ported.*A12"),
     (["--no-densify", "--trace-dir", "t"], "trace-dir.*not yet ported"),
 ])
@@ -349,37 +385,6 @@ def test_train_modes_not_yet_ported_raise(tmp_path, extra, match):
     _, argv = _train_scene(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         train_app.main(argv + extra + ["--device", "cpu"])
-
-
-def test_trainer_evaluate_not_yet_ported(tmp_path):
-    from tpugs_torch.train.trainer import TrainConfig, Trainer
-
-    root, _ = _train_scene(tmp_path)
-    tr = Trainer(root, TrainConfig(densify_mode="none", capacity=32,
-                                   output_dir=str(tmp_path / "o")),
-                 log_fn=lambda *_: None, device="cpu")
-    with pytest.raises(NotImplementedError, match="evaluate.*not yet ported"):
-        tr.evaluate()
-
-
-def test_trainer_refuses_eval_every_before_any_step(tmp_path):
-    """eval_every > 0 reaches Trainer.evaluate, which is not ported: the
-    Trainer refuses it when it is made, so no step runs and nothing is
-    written (the setup of ROADMAP C1)."""
-    from tpugs_torch.train.trainer import TrainConfig, Trainer
-    from tpugs_torch.utils.gt_scene import make_gt_model, write_gt_dataset
-
-    root = str(tmp_path / "gt")
-    write_gt_dataset(root, make_gt_model(500, seed=0, device="cpu"),
-                     num_views=4, width=64, height=48, sparse_points=200)
-    out = tmp_path / "o"
-    cfg = TrainConfig(iterations=20, eval_every=10, log_every=5, save_every=0,
-                      densify_mode="none", tile_h=16, tile_w=16,
-                      output_dir=str(out))
-    with pytest.raises(NotImplementedError, match="eval_every=10.*A8c"):
-        Trainer(root, cfg, log_fn=lambda *_: pytest.fail("trained"),
-                device="cpu")
-    assert not out.exists()
 
 
 def _guard_on_call(monkeypatch, module, name: str, k: int) -> list:

@@ -1,12 +1,12 @@
 """train CLI, as tpugs.apps.train, on the card (or on the CPU with
 --device cpu):
 
-  python -m tpugs_torch.apps.train -d <colmap_dir> -o <out_dir> --no-densify
-      [options] [--device cuda|cpu]
+  python -m tpugs_torch.apps.train -d <colmap_dir> -o <out_dir> [options]
+      [--mcmc | --no-densify] [--device cuda|cpu]
 
-The same flags as the reference's CLI. Not yet ported, and refused with the
-ROADMAP item: ADC (the default without --no-densify) and --mcmc
-densification, --mesh and --trace-dir.
+The same flags as the reference's CLI: ADC densification by default, MCMC
+with --mcmc, none with --no-densify. Not yet ported, and refused with the
+ROADMAP item: --mesh (A12) and --trace-dir (A9).
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ The model is five learnable arrays: means [N, 3], quats [N, 4] (w, x, y, z,
 unnormalised), log_scales [N, 3], opacity_logits [N] and sh [N, 3, C].
 `GaussianState` pads them to a fixed capacity with an `alive` mask: dead
 slots are never rendered. `params_from_numpy` carries the arrays across as
-tensors, so both packages render the same model.
+tensors, so both packages render the same model, and
+`train_state_from_numpy` the whole train state.
 """
 from __future__ import annotations
 
@@ -33,6 +34,35 @@ def params_from_numpy(params: dict[str, np.ndarray],
         out[name] = torch.from_numpy(arr).to(device)
     out["opacity_logits"] = out["opacity_logits"].reshape(-1)
     return out
+
+
+def train_state_from_numpy(flat: dict[str, np.ndarray], device="cuda"):
+    """The port's TrainState from the reference's TrainState leaves as numpy,
+    named as in a checkpoint: params/<name>, alive, adam_m/<name>,
+    adam_v/<name>, adam_count, adc_grad_accum, adc_grad_count,
+    adc_max_radii and key (the port's uint32 [2] (seed, steps taken)), on
+    `device` ('cuda' unless 'cpu' is asked for)."""
+    from tpugs_torch.optim.adam import AdamState
+    from tpugs_torch.optim.densify_adc import ADCState
+    from tpugs_torch.train.trainer import TrainState
+
+    device = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a)).to(device)  # a copy
+
+    def group(prefix):
+        return {k[len(prefix):]: t(v) for k, v in flat.items()
+                if k.startswith(prefix)}
+
+    return TrainState(
+        params=group("params/"),
+        alive=t(flat["alive"]),
+        adam=AdamState(m=group("adam_m/"), v=group("adam_v/"),
+                       count=t(flat["adam_count"])),
+        adc=ADCState(grad_accum=t(flat["adc_grad_accum"]),
+                     grad_count=t(flat["adc_grad_count"]),
+                     max_radii=t(flat["adc_max_radii"])),
+        key=np.asarray(flat["key"], np.uint32),
+    )
 
 
 @dataclasses.dataclass

@@ -41,29 +41,12 @@ def save_train_checkpoint(path: str, state, step: int):
 def load_train_checkpoint(path: str, device="cuda"):
     """-> (TrainState with tensors on `device`, step); 'cuda' unless 'cpu'
     is asked for."""
-    from tpugs_torch.optim.adam import AdamState
-    from tpugs_torch.optim.densify_adc import ADCState
-    from tpugs_torch.train.trainer import TrainState
+    from tpugs_torch.core.gaussians import train_state_from_numpy
 
     device = resolve_device(device)
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    def group(prefix):
-        return {k[len(prefix):]: t(v) for k, v in flat.items()
-                if k.startswith(prefix)}
-
-    state = TrainState(
-        params=group("params/"),
-        alive=t(flat["alive"]),
-        adam=AdamState(m=group("adam_m/"), v=group("adam_v/"),
-                       count=t(flat["adam_count"])),
-        adc=ADCState(grad_accum=t(flat["adc_grad_accum"]),
-                     grad_count=t(flat["adc_grad_count"]),
-                     max_radii=t(flat["adc_max_radii"])),
-        key=np.asarray(flat["key"], np.uint32),
-    )
+    state = train_state_from_numpy(flat, device)
     with open(path + ".json") as f:
         meta = json.load(f)
     return state, int(meta["step"])

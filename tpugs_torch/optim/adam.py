@@ -80,3 +80,16 @@ def adam_step(config: AdamConfig, state: AdamState, params: dict,
         new_m[k] = m
         new_v[k] = v
     return new_params, AdamState(m=new_m, v=new_v, count=t)
+
+
+def zero_slots(state: AdamState, mask: torch.Tensor) -> AdamState:
+    """The moments of the slots where mask [Nc] is True set to zero (the
+    slots densification rewrote); the other slots keep theirs."""
+
+    def zap(x):
+        m = mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+        return torch.where(m, torch.zeros_like(x), x)
+
+    return AdamState(m={k: zap(v) for k, v in state.m.items()},
+                     v={k: zap(v) for k, v in state.v.items()},
+                     count=state.count)

@@ -1,17 +1,23 @@
-"""Training loop on one device, as in tpugs/train/trainer.py with
-densify_mode="none".
+"""Training loop on one device, as in tpugs/train/trainer.py without a
+mesh.
 
 Each step renders one view with gradients (the compositor's backward kernel
-and the sorted segment reduction), takes the L1 + SSIM loss, and applies
-Adam, as one eager PyTorch function. The reference runs `steps_per_call`
+and the sorted segment reduction), takes the L1 + SSIM loss (plus MCMC's
+regularization), and applies Adam, as one eager PyTorch function; in ADC
+mode it also accumulates the screen-space gradient of a zero probe, in
+MCMC mode it adds position noise. The reference runs `steps_per_call`
 steps inside one compiled scan; the port keeps that block structure for
 what it decides, the views drawn (one numpy draw per block) and the
-schedule of logs, checkpoints and overflow checks, and runs the block's
-steps one by one. The image bank stays on the device.
+schedule of logs, events, checkpoints, evaluations and overflow checks,
+and runs the block's steps one by one. The image bank stays on the device.
 
-Not yet ported (each raises, naming its ROADMAP item): ADC and MCMC
-densification (A8), the device mesh (A12) and evaluate (A8,
-train/metrics.py).
+Densification events (ADC's opacity reset and densify, MCMC's relocate and
+grow) run after each block for the steps it covered, as the reference's
+do. Their random draws come from torch.Generators seeded from the state's
+key (seed, steps taken) and a stream tag, so a resumed run draws what an
+uninterrupted one does.
+
+Not yet ported: the device mesh (ROADMAP A12) raises.
 """
 from __future__ import annotations
 
@@ -31,10 +37,15 @@ from tpugs_torch.data.dataset import Dataset
 from tpugs_torch.device import resolve_device
 from tpugs_torch.io.ply import write_gaussian_ply_numpy
 from tpugs_torch.ops.render import RasterConfig, render
-from tpugs_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_step
-from tpugs_torch.optim.densify_adc import ADCConfig, ADCState, adc_init
-from tpugs_torch.optim.densify_mcmc import MCMCConfig
+from tpugs_torch.optim.adam import (AdamConfig, AdamState, adam_init,
+                                    adam_step, zero_slots)
+from tpugs_torch.optim.densify_adc import (ADCConfig, ADCState,
+                                           adc_accumulate, adc_densify,
+                                           adc_init, reset_opacity)
+from tpugs_torch.optim.densify_mcmc import (MCMCConfig, grow, inject_noise,
+                                            regularization, relocate)
 from tpugs_torch.optim.lr_schedule import active_sh_degree_for_step
+from tpugs_torch.train.metrics import evaluate_views
 from tpugs_torch.train.loss import combined_loss
 from tpugs_torch.utils.memory import MemoryWatchdog, check_memory_budget
 
@@ -136,25 +147,66 @@ def _background(key: np.ndarray, random: bool, device) -> torch.Tensor:
     return torch.rand((3,), generator=gen).to(device)
 
 
-def make_train_step(cfg: TrainConfig, raster: RasterConfig):
-    """One training step: render with gradients, L1 + SSIM, Adam."""
+# Stream tags of the draws made from a state's key besides the background.
+NOISE_STREAM, DENSIFY_STREAM, RELOCATE_STREAM = 1, 2, 3
+
+
+def event_generator(key: np.ndarray, stream: int,
+                    device="cuda") -> torch.Generator:
+    """A torch.Generator on `device` ('cuda' unless 'cpu' is asked for)
+    seeded from the key (seed, steps taken) and a stream tag."""
+    device = resolve_device(device)
+    seed = np.random.SeedSequence(
+        [int(key[0]), int(key[1]), stream]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def make_train_step(cfg: TrainConfig, raster: RasterConfig,
+                    scene_extent: float):
+    """One training step: render with gradients, L1 + SSIM (+ MCMC's
+    regularization), Adam; ADC's gradient accumulation or MCMC's noise.
+    Outside ADC mode the step builds no screen-space probe."""
+    adc_mode = cfg.densify_mode == "adc"
+    mcmc_mode = cfg.densify_mode == "mcmc"
+    grad_scales = {}  # device -> (W/2, H/2), copied to the device once
 
     def train_step(state: TrainState, image, viewmat, intrinsics, step,
                    sh_degree: int):
-        background = _background(state.key, cfg.random_background,
-                                 image.device)
+        dev = image.device
+        background = _background(state.key, cfg.random_background, dev)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
+        probe = None
+        if adc_mode:
+            probe = torch.zeros((state.alive.shape[0], 2), device=dev,
+                                requires_grad=True)
         out = render(params["means"], params["quats"], params["log_scales"],
                      params["opacity_logits"], params["sh"], state.alive,
-                     viewmat, intrinsics, raster, sh_degree, background)
+                     viewmat, intrinsics, raster, sh_degree, background,
+                     means2d_probe=probe)
         loss = combined_loss(out.color, image, cfg.lambda_ssim)
+        if mcmc_mode:
+            loss = loss + regularization(cfg.mcmc, params, state.alive)
         names = list(params)
-        grads = dict(zip(names, torch.autograd.grad(
-            loss, [params[k] for k in names])))
+        grads = torch.autograd.grad(
+            loss, [params[k] for k in names] + ([probe] if adc_mode else []))
         with torch.no_grad():
             new_params, new_adam = adam_step(
-                cfg.adam, state.adam, state.params, grads, step)
+                cfg.adam, state.adam, state.params,
+                dict(zip(names, grads)), step)
+            adc = state.adc
+            if adc_mode:
+                # NDC units: the 2e-4 threshold is calibrated for them, a
+                # (W/2, H/2) factor above the pixel gradient.
+                if dev not in grad_scales:
+                    grad_scales[dev] = torch.tensor(
+                        [raster.img_w * 0.5, raster.img_h * 0.5], device=dev)
+                adc = adc_accumulate(adc, grads[-1], out.radii,
+                                     grad_scales[dev])
+            if mcmc_mode:
+                new_params = inject_noise(
+                    cfg.mcmc, new_params, state.alive, step,
+                    event_generator(state.key, NOISE_STREAM, dev))
             l1 = torch.mean(torch.abs(out.color - image))
         stats = StepStats(loss=loss.detach(), l1=l1, num_pairs=out.num_pairs,
                           pair_overflow=out.pair_overflow,
@@ -162,15 +214,90 @@ def make_train_step(cfg: TrainConfig, raster: RasterConfig):
                           hit_overflow=out.hit_overflow)
         key = state.key + np.asarray([0, 1], np.uint32)
         return TrainState(params=new_params, alive=state.alive, adam=new_adam,
-                          adc=state.adc, key=key), stats
+                          adc=adc, key=key), stats
 
     return train_step
 
 
+def make_densify_step(cfg: TrainConfig, scene_extent: float):
+    """An ADC event: clone, split, prune, and zero the moments of the
+    slots it rewrote."""
+
+    def densify(state: TrainState, size_pruning_active: bool):
+        gen = event_generator(state.key, DENSIFY_STREAM, state.alive.device)
+        with torch.no_grad():
+            params, alive, changed, adc, stats = adc_densify(
+                cfg.adc, state.params, state.alive, state.adc, scene_extent,
+                size_pruning_active, generator=gen)
+            adam = zero_slots(state.adam, changed)
+        return TrainState(params=params, alive=alive, adam=adam, adc=adc,
+                          key=state.key), stats
+
+    return densify
+
+
+def make_relocate_step(cfg: TrainConfig, scene_extent: float):
+    """An MCMC event: relocate the dead, grow into free slots (grow_factor
+    > 0), and zero the moments of the slots either changed."""
+
+    def reloc(state: TrainState):
+        gen = event_generator(state.key, RELOCATE_STREAM, state.alive.device)
+        with torch.no_grad():
+            params, changed, stats = relocate(
+                cfg.mcmc, state.params, state.alive, scene_extent, gen)
+            alive = state.alive
+            if cfg.mcmc.grow_factor > 0:
+                params, alive, grown, n_new = grow(
+                    cfg.mcmc, params, alive, scene_extent, generator=gen)
+                changed = changed | grown
+                stats = dict(stats, num_added=n_new)
+            adam = zero_slots(state.adam, changed)
+        return TrainState(params=params, alive=alive, adam=adam,
+                          adc=state.adc, key=state.key), stats
+
+    return reloc
+
+
+def reset_opacity_step(state: TrainState) -> TrainState:
+    """Every opacity to 0.01, and only the opacity moments zeroed."""
+    m, v = dict(state.adam.m), dict(state.adam.v)
+    m["opacity_logits"] = torch.zeros_like(m["opacity_logits"])
+    v["opacity_logits"] = torch.zeros_like(v["opacity_logits"])
+    return TrainState(params=reset_opacity(state.params), alive=state.alive,
+                      adam=AdamState(m=m, v=v, count=state.adam.count),
+                      adc=state.adc, key=state.key)
+
+
+def _block_length(step: int, k_max: int, iters: int) -> int:
+    """The steps of the block from `step`: aligned to K, never crossing an
+    SH-degree boundary or the run's end."""
+    k_blk = k_max - (step % k_max) if step % k_max else k_max
+    return min(k_blk, iters - step, 1000 - step % 1000)
+
+
+def _host_ints(stats: dict) -> dict:
+    """An event's stats read back in one copy."""
+    vals = torch.stack([v.to(torch.int64) for v in stats.values()]).tolist()
+    return dict(zip(stats, vals))
+
+
+def eval_views(dataset: Dataset, device="cuda") -> list:
+    """The dataset's test views as (name, target image [H, W, 3] numpy,
+    (viewmat, intrinsics) on `device`)."""
+    device = resolve_device(device)
+    views = []
+    for i, cam in enumerate(dataset.test_cameras):
+        views.append((cam.image_name, dataset.load_test_image(i), (
+            torch.as_tensor(cam.world_to_camera(), dtype=torch.float32,
+                            device=device),
+            torch.as_tensor(cam.intrinsics_array(), device=device))))
+    return views
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: not yet ported to tpugs_torch (ROADMAP {item}); train with "
-        f"densify_mode='none' (--no-densify) on one device")
+        f"{what}: not yet ported to tpugs_torch (ROADMAP {item}); train on "
+        f"one device")
 
 
 class Trainer:
@@ -180,19 +307,20 @@ class Trainer:
     def __init__(self, data_dir: str, config: TrainConfig = TrainConfig(),
                  log_fn=print, resume_from: str | None = None,
                  device="cuda"):
-        if config.densify_mode in ("adc", "mcmc"):
-            raise _not_ported(f"densify_mode={config.densify_mode!r}", "A8")
-        if config.densify_mode != "none":
+        if config.densify_mode not in ("adc", "mcmc", "none"):
             raise ValueError(f"unknown densify_mode {config.densify_mode!r}")
         if config.mesh:
             raise _not_ported(f"mesh={config.mesh!r}", "A12")
-        if config.eval_every > 0:
-            # Refused before any step: the evaluation it would reach is not
-            # ported, and a run that raised there would lose its steps.
-            raise NotImplementedError(
-                f"eval_every={config.eval_every}: Trainer.evaluate "
-                f"(train/metrics.py) is not yet ported to tpugs_torch "
-                f"(ROADMAP A8c); train with eval_every=0")
+        # MCMC's noise must follow the optimizer's position LR schedule.
+        if config.mcmc.position_lr != config.adam.position_lr:
+            log_fn(
+                "WARNING: MCMCConfig.position_lr differs from "
+                "AdamConfig.position_lr; overriding the MCMC noise schedule "
+                "with the optimizer's (noise must track the actual xyz LR). "
+                "Customize AdamConfig.position_lr to change both."
+            )
+            config = dataclasses.replace(config, mcmc=dataclasses.replace(
+                config.mcmc, position_lr=config.adam.position_lr))
         self.device = resolve_device(device)
         self.cfg = config
         self.log = log_fn
@@ -241,7 +369,11 @@ class Trainer:
             self.state, self.start_step = load_train_checkpoint(
                 resume_from, self.device)
             self.log(f"resumed from {resume_from} at step {self.start_step}")
-        self._train_step = make_train_step(self.cfg, self.raster)
+        self._train_step = make_train_step(self.cfg, self.raster,
+                                           self.scene_extent)
+        self._densify = make_densify_step(self.cfg, self.scene_extent)
+        self._relocate = make_relocate_step(self.cfg, self.scene_extent)
+        self._eval_raster = None  # the evaluation's, grown on its own
 
         sizes = {(c.height, c.width) for c in self.dataset.train_cameras}
         if len(sizes) != 1:
@@ -254,6 +386,13 @@ class Trainer:
         self._intrinsics = torch.as_tensor(
             np.stack([c.intrinsics_array() for c in cams]), device=self.device)
         self._rng = np.random.default_rng(config.seed)
+        # A resumed run draws the views an uninterrupted one would draw from
+        # here: replay the draws of the blocks before start_step.
+        step, k_max = 0, self._effective_steps_per_call()
+        while step < self.start_step:
+            k_blk = _block_length(step, k_max, self.start_step)
+            self._rng.integers(0, self.dataset.num_train(), size=k_blk)
+            step += k_blk
 
     def _handle_overflow(self, stats: StepStats, step: int):
         """Pairs or tile hits past the capacities were dropped in the last
@@ -291,7 +430,8 @@ class Trainer:
         )
         self.raster = dataclasses.replace(
             self.raster, pair_capacity=new_pairs, max_hits_per_tile=new_hits)
-        self._train_step = make_train_step(self.cfg, self.raster)
+        self._train_step = make_train_step(self.cfg, self.raster,
+                                           self.scene_extent)
 
     def _image_bank(self) -> torch.Tensor:
         if self._images is None:
@@ -315,9 +455,7 @@ class Trainer:
 
         step = self.start_step
         while step < iters:
-            # Block length: aligned to K, never crossing an SH-degree boundary.
-            k_blk = k_max - (step % k_max) if step % k_max else k_max
-            k_blk = min(k_blk, iters - step, 1000 - step % 1000)
+            k_blk = _block_length(step, k_max, iters)
             vi = self._rng.integers(0, self.dataset.num_train(), size=k_blk)
             sh_deg = active_sh_degree_for_step(step, cfg.sh_degree)
             losses = []
@@ -336,7 +474,31 @@ class Trainer:
             if overflow:
                 self._handle_overflow(stats, step)
 
+            # The events of every step the block covered: with K dividing
+            # every period, at most one of each kind per block.
             for s in range(prev, step):
+                if cfg.densify_mode == "adc":
+                    if cfg.adc.should_reset_opacity(s):
+                        self.state = reset_opacity_step(self.state)
+                        self.log(f"[{s}] opacity reset")
+                    if cfg.adc.should_densify(s):
+                        self.state, dstats = self._densify(
+                            self.state,
+                            size_pruning_active=s > cfg.adc.opacity_reset_every)
+                        d = _host_ints(dstats)
+                        self.log(
+                            f"[{s}] densify: +{d['num_cloned']} cloned, "
+                            f"+{d['num_split']} split, "
+                            f"-{d['num_pruned']} pruned, N={d['num_after']}")
+                elif cfg.densify_mode == "mcmc" and cfg.mcmc.should_relocate(s):
+                    self.state, rstats = self._relocate(self.state)
+                    r = _host_ints(rstats)
+                    added = r.get("num_added", 0)
+                    self.log(
+                        f"[{s}] mcmc relocate: {r['num_relocated']} of "
+                        f"{r['num_dead']} dead, +{added} grown "
+                        f"(N={r['num_total'] + added})")
+
                 if cfg.log_every > 0 and s % cfg.log_every == 0:
                     loss = float(losses[s - prev])
                     now = time.perf_counter()
@@ -372,7 +534,12 @@ class Trainer:
                 if cfg.save_every > 0 and s > 0 and s % cfg.save_every == 0:
                     self.save_checkpoint(s)
                 if cfg.eval_every > 0 and s > 0 and s % cfg.eval_every == 0:
-                    self.evaluate()
+                    # At the current warm-up degree, not the final one.
+                    res = self.evaluate(
+                        active_sh_degree_for_step(s, cfg.sh_degree))
+                    self.log(
+                        f"[{s}] eval: PSNR {res.mean_psnr:.2f} dB  "
+                        f"SSIM {res.mean_ssim:.4f} ({len(res.images)} views)")
 
         hist_f.close()
         self.save_checkpoint(iters)
@@ -416,13 +583,19 @@ class Trainer:
 
     def _effective_steps_per_call(self) -> int:
         """Largest K <= cfg.steps_per_call dividing every schedule period
-        (the SH degree's 1000, log, save, eval), so events land on block
-        boundaries."""
+        (the SH degree's 1000, log, save, eval, ADC's or MCMC's), so events
+        land on block boundaries."""
         cfg = self.cfg
         periods = [1000]
         for p in (cfg.log_every, cfg.save_every, cfg.eval_every):
             if p > 0:
                 periods.append(p)
+        if cfg.densify_mode == "adc":
+            periods += [cfg.adc.densify_every, max(cfg.adc.densify_from, 1)]
+            if cfg.adc.opacity_reset_every > 0:
+                periods.append(cfg.adc.opacity_reset_every)
+        elif cfg.densify_mode == "mcmc":
+            periods += [cfg.mcmc.relocate_every, max(cfg.mcmc.relocate_from, 1)]
         g = 0
         for p in periods:
             g = math.gcd(g, p)
@@ -431,8 +604,89 @@ class Trainer:
             k -= 1
         return max(k, 1)
 
+    def _eval_raster_config(self) -> RasterConfig:
+        """The evaluation's raster config: it starts at training's and grows
+        on its own (growing it does not touch the train step), but always
+        covers training's capacities."""
+        er = self._eval_raster
+        if er is None:
+            er = self.raster
+        else:
+            er = dataclasses.replace(
+                er,
+                pair_capacity=max(er.pair_capacity, self.raster.pair_capacity),
+                max_hits_per_tile=max(er.max_hits_per_tile,
+                                      self.raster.max_hits_per_tile))
+        self._eval_raster = er
+        return er
+
+    def _handle_eval_overflow(self, name, num_pairs, pair_of, tile_hits,
+                              hit_of) -> bool:
+        """A test view's pairs or tile hits overflowed: raise ("error"),
+        grow the eval capacities ("grow"; returns True and the caller
+        renders again) or log ("warn"), never a silently truncated PSNR."""
+        er = self._eval_raster
+        msg = (
+            f"eval view {name} OVERFLOW: pairs {num_pairs}"
+            f"/{er.pair_capacity}, busiest tile {tile_hits}"
+            f"/{er.max_hits_per_tile} (back-most pairs dropped)"
+        )
+        if self.cfg.on_overflow == "error":
+            raise RuntimeError(msg)
+        new_pairs, new_hits = er.pair_capacity, er.max_hits_per_tile
+        if self.cfg.on_overflow == "grow":
+            if pair_of:
+                new_pairs = max(new_pairs,
+                                -(-int(1.3 * num_pairs) // 512) * 512)
+            if hit_of:
+                new_hits = max(new_hits, -(-int(1.2 * tile_hits) // 128) * 128)
+        if (new_pairs, new_hits) == (er.pair_capacity, er.max_hits_per_tile):
+            self.log(msg + " — capacities unchanged (policy "
+                     f"{self.cfg.on_overflow!r})")
+            return False
+        self.log(msg + f" -> growing eval pair_capacity {er.pair_capacity}->"
+                 f"{new_pairs}, max_hits {er.max_hits_per_tile}->{new_hits}"
+                 " (eval only)")
+        self._eval_raster = dataclasses.replace(
+            er, pair_capacity=new_pairs, max_hits_per_tile=new_hits)
+        return True
+
     def evaluate(self, sh_degree: int | None = None):
-        raise _not_ported("Trainer.evaluate (train/metrics.py)", "A8")
+        """PSNR/SSIM over the dataset's test views with the current model,
+        rendered without gradients. A view whose pairs or tile hits
+        overflow grows the eval capacities and renders again (or warns, or
+        raises, by on_overflow)."""
+        deg = self.cfg.sh_degree if sh_degree is None else sh_degree
+        p, alive = self.state.params, self.state.alive
+        bg = torch.zeros((3,), device=self.device)
+
+        def render_checked(name, args):
+            for _ in range(8):  # growth converges: capacities only increase
+                with torch.no_grad():
+                    out = render(p["means"], p["quats"], p["log_scales"],
+                                 p["opacity_logits"], p["sh"], alive, *args,
+                                 self._eval_raster_config(), deg, bg,
+                                 need_grads=False)
+                num_pairs, pair_of, tile_hits, hit_of = torch.stack([
+                    out.num_pairs.to(torch.int64),
+                    out.pair_overflow.to(torch.int64),
+                    out.max_tile_hits.to(torch.int64),
+                    out.hit_overflow.to(torch.int64)]).tolist()
+                if not (pair_of or hit_of):
+                    break
+                if not self._handle_eval_overflow(name, num_pairs,
+                                                  bool(pair_of), tile_hits,
+                                                  bool(hit_of)):
+                    break
+            return out.color
+
+        res = evaluate_views(None, eval_views(self.dataset, self.device),
+                             num_gaussians=int(torch.sum(alive)),
+                             render_named=render_checked)
+        # The views' kernels have run: a contract violation found on the
+        # card raises before the metrics are returned.
+        cuda_lib.check_guards()
+        return res
 
     def gaussian_state(self) -> GaussianState:
         p = self.state.params
