@@ -69,6 +69,29 @@ a nonzero exit:
      after the last, each eval view; counts the host syncs of one ADC
      step against one step without densification (equal), and of one
      densify and one relocate event (none).
+  7. the viewer (after phase carry, on the render CLI's 1M-gaussian SH-3
+     scene at 1920x1080, tile 32): the anchor build (build_frame_cache)
+     launches K1 and K2 once and K3 never, its pair count and busiest tile
+     are render(presort="qkey")'s, and the zero-delta cached frame
+     (render_cached, under torch's sync debug mode) is that render's, bit
+     for bit; a 16-frame drag in 0.05 degree steps through
+     OfflineRenderer.render_interactive re-anchors past 0.25 degrees and
+     launches K3 alone on each frame that keeps its anchor; the PSNR
+     of the cached frame against the exact one falls from 0.1 to 1
+     degree; the exact frame,
+     the anchor build, the cached frame and a re-anchor every 8 frames are
+     timed; drags at the web page's rates (1, 2 and 4 mouse pixels per
+     round trip, 1/300 rad a pixel) at 1920x1080 and at the page's
+     960x512 drag frames, each timed against the exact frame of its size,
+     re-anchor every frame from 2 pixels (K1, K2 and K3 once each); then
+     ViewerServer answers real HTTP on 127.0.0.1 (the page,
+     /info, four drag frames, a release, depth and heatmap), its JPEGs at
+     the snapped sizes;
+  8. tools (after phase train-densify, on the two GT datasets): `python -m
+     tpugs_torch.apps.info --json` names the card, dump_points writes the
+     train-cli dataset's points and cameras, the native parse of its
+     points3D.bin equals the numpy parse, and the train CLI writes a
+     torch.profiler trace of 3 steps on the densify dataset;
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -85,7 +108,8 @@ a warp per gaussian and the slot spans of the kernel's chunks.
 Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
-(the ADC and MCMC CLI runs and the ADC run's evaluation among them),
+(the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
+anchor build and its drag among them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -144,6 +168,25 @@ ADC_CONFIG = {"eval_every": 60, "adc": {
     "opacity_reset_every": 60}}
 MCMC_CONFIG = {"mcmc": {"relocate_from": 20, "relocate_every": 20}}
 EVENT_RTOL = 2e-5  # card vs CPU event params: exp, log, pow ulps
+# The viewer on the render CLI's scene and frame-0 camera (1920x1080, tile
+# 32, the viewer's default capacities grown by its first frame): a drag of
+# 16 frames turning 0.05 degrees each, the cached frame's drift against the
+# exact one at four angles, and a re-anchor every 8 frames.
+VIEWER_DRAG_FRAMES, VIEWER_STEP_DEG = 16, 0.05
+VIEWER_PSNR_DEG = (0.1, 0.25, 0.5, 1.0)
+VIEWER_REANCHOR_EVERY = 8
+# The web page's drag (viewer/server.py): a mouse move of dx pixels turns
+# the orbit dx / 300 rad, and the page posts one frame per round trip, at
+# half size while dragging (960x512 here). A frame turns by the mouse's
+# pixels per round trip over 300: 0.191 degrees a pixel, so from 2 pixels
+# per round trip every frame passes the 0.25-degree rule and re-anchors.
+VIEWER_PAGE_RAD_PER_PX = 1.0 / 300.0
+VIEWER_PAGE_PX = (1, 2, 4)  # mouse pixels per round trip
+VIEWER_PAGE_FRAMES = 8
+TRACE_STEPS = 3  # the train CLI's steps under --trace-dir
+PORT_KERNEL_NAMES = ("expand_kernel", "align_copy_kernel",
+                     "composite_fwd_kernel", "composite_bwd_kernel",
+                     "segreduce_sorted_kernel", "segreduce_interval_kernel")
 
 _T0 = time.perf_counter()
 
@@ -1961,6 +2004,362 @@ def phase_train_densify(tmp, dev, card):
     return adc_launches, eval_launches, mcmc_launches
 
 
+def viewer_camera(base, az_deg: float, w: int = CLI_W, h: int = CLI_H):
+    """The render CLI's frame-0 camera (its orbit of the scene, `base` =
+    OrbitCamera.from_points(means), at 15 degrees elevation) turned az_deg
+    about the target with OrbitCamera.rotate, at w x h."""
+    import dataclasses
+
+    import numpy as np
+
+    cam = dataclasses.replace(base, elevation=np.radians(15.0))
+    cam.rotate(np.radians(az_deg), 0.0)
+    return cam.build_camera(w, h)
+
+
+def psnr(a, b) -> float:
+    return -10.0 * math.log10(max(float(((a - b) ** 2).mean()), 1e-12))
+
+
+def phase_viewer(dev, params):
+    """The viewer's cached path on the render CLI's scene; returns the
+    launches of the anchor build and of the drag."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.core import transforms as tf
+    from tpugs_torch.ops.render import render
+    from tpugs_torch.ops.render_cached import build_frame_cache, render_cached
+    from tpugs_torch.viewer.camera import OrbitCamera
+    from tpugs_torch.viewer.offline import OfflineRenderer
+
+    base = OrbitCamera.from_points(params["means"])
+    r = OfflineRenderer(params, device=dev)  # the viewer's defaults
+    for deg in (0.0, max(VIEWER_PSNR_DEG)):  # settle the capacities
+        r.render_camera(viewer_camera(base, deg))
+    cfg = r._cfg(CLI_H, CLI_W)
+    p = r.params
+    scene = (p["means"], p["quats"], p["log_scales"], p["opacity_logits"],
+             p["sh"], r.alive)
+    bg = torch.zeros(3, device=dev)
+
+    def view(deg):
+        cam = viewer_camera(base, deg)
+        return (torch.as_tensor(cam.world_to_camera(), dtype=torch.float32,
+                                device=dev),
+                torch.as_tensor(cam.intrinsics_array(), device=dev))
+
+    def exact(vm, it):
+        out = render(*scene, vm, it, cfg, r.sh_degree, bg, presort="qkey",
+                     need_grads=False)
+        check(not bool(out.pair_overflow) and not bool(out.hit_overflow),
+              "exact viewer frame overflowed")
+        return out
+
+    vm0, it = view(0.0)
+    # 1. The anchor build, and the cached frame at zero delta.
+    reset_launches()
+    cache = build_frame_cache(*scene, vm0, it, cfg, r.sh_degree)
+    torch.cuda.synchronize()
+    anchor_launches = read_launches()
+    check_launches(anchor_launches, ("expand", "align_copy"), 1,
+                   "anchor builds")
+    ref = exact(vm0, it)
+    for f in ("num_pairs", "pair_overflow", "max_tile_hits"):
+        check(int(getattr(cache, f)) == int(getattr(ref, f)),
+              f"anchor {f} {int(getattr(cache, f))} != render's "
+              f"{int(getattr(ref, f))}")
+    reset_launches()
+    color, final_t = without_sync(
+        lambda: render_cached(cache, vm0, it, cfg, bg), "render_cached")
+    torch.cuda.synchronize()
+    check_launches(read_launches(), ("composite_fwd",), 1, "cached frames")
+    # The projection's first op per gaussian and per gathered slot: the
+    # same bits whatever the row count (transforms._WorldToCamera).
+    idx = torch.randint(0, p["means"].shape[0],
+                        (cache.static_attr.shape[1],), device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+    t_slots = tf.world_to_camera_points(p["means"][idx], vm0)
+    t_all = tf.world_to_camera_points(p["means"], vm0)[idx]
+    differ = int((t_slots != t_all).sum())
+    d_color = float((color - ref.color).abs().max())
+    print(f"viewer anchor: {int(cache.num_pairs)} pairs, busiest tile "
+          f"{int(cache.max_tile_hits)}, table {tuple(cache.static_attr.shape)}"
+          f" (capacity {cfg.pair_capacity}, max hits {cfg.max_hits_per_tile});"
+          f" launches {anchor_launches}; zero-delta cached frame vs "
+          f"render(qkey): max |dC| {d_color}, max |dT| "
+          f"{float((final_t - ref.final_T).abs().max())}; world_to_camera "
+          f"per gaussian vs per slot: {differ} of {t_slots.numel()} values "
+          f"differ", flush=True)
+    check(torch.equal(color, ref.color) and torch.equal(final_t, ref.final_T),
+          "the zero-delta cached frame is not render(presort='qkey')'s")
+    check(differ == 0, "world_to_camera_points depends on the row count")
+
+    # 2. The drag through render_interactive.
+    r._icache = None
+    drag_launches = collections.Counter()
+    anchor_deg, paths = 0.0, []
+    n0 = len(r.frame_stats)
+    for i in range(VIEWER_DRAG_FRAMES):
+        deg = i * VIEWER_STEP_DEG
+        cam = viewer_camera(base, deg)
+        reset_launches()
+        r.render_interactive(CLI_H, CLI_W, cam.world_to_camera(),
+                             cam.intrinsics_array(), (0.0, 0.0, 0.0))
+        launches = read_launches()
+        drag_launches.update(launches)
+        path = r.frame_stats[-1].path
+        paths.append(path)
+        if path == "anchor":
+            check(i == 0 or deg - anchor_deg >= 0.25 - 0.01,
+                  f"drag frame {i} re-anchored {deg - anchor_deg:.3f} deg "
+                  f"from its anchor")
+            check_launches(launches, ("expand", "align_copy", "composite_fwd"),
+                           1, "re-anchoring drag frames")
+            anchor_deg = deg
+        else:
+            check(deg - anchor_deg <= 0.25 + 0.01,
+                  f"drag frame {i} kept an anchor {deg - anchor_deg:.3f} deg "
+                  f"away")
+            check_launches(launches, ("composite_fwd",), 1, "cached drag frames")
+    check(paths.count("anchor") >= 2, f"the drag never re-anchored: {paths}")
+    drag = r.frame_stats[n0:]
+    by_path = {k: [s.ms for s in drag if s.path == k] for k in ("anchor",
+                                                                 "cached")}
+    print(f"viewer drag {VIEWER_DRAG_FRAMES} frames x {VIEWER_STEP_DEG} deg: "
+          f"{''.join('A' if x == 'anchor' else 'c' for x in paths)}; frame ms "
+          f"{[round(s.ms, 3) for s in drag]}; mean anchor frame "
+          f"{np.mean(by_path['anchor'][1:] or by_path['anchor']):.3f} ms, "
+          f"mean cached frame {np.mean(by_path['cached']):.3f} ms; launches "
+          f"{dict(drag_launches)}", flush=True)
+
+    # 3. Drift against the exact frame.
+    psnrs = []
+    for deg in VIEWER_PSNR_DEG:
+        vm, _ = view(deg)
+        psnrs.append(psnr(render_cached(cache, vm, it, cfg, bg)[0],
+                          exact(vm, it).color))
+    print(f"viewer cached vs exact PSNR at {VIEWER_PSNR_DEG} deg from the "
+          f"anchor: {[round(x, 3) for x in psnrs]} dB", flush=True)
+    check(all(a > b for a, b in zip(psnrs, psnrs[1:])),
+          f"PSNR does not fall with the angle: {psnrs}")
+
+    # 4. Times (CUDA events).
+    cam1 = viewer_camera(base, VIEWER_STEP_DEG)
+    vm1, _ = view(VIEWER_STEP_DEG)
+    n0 = len(r.frame_stats)
+    for _ in range(6):
+        r.render_arrays(CLI_H, CLI_W, cam1.world_to_camera(),
+                        cam1.intrinsics_array(), (0.0, 0.0, 0.0))
+    exact_ms = np.mean([s.ms for s in r.frame_stats[n0 + 1:]])
+    anchor_ms = cuda_ms(lambda: build_frame_cache(*scene, vm0, it, cfg,
+                                                  r.sh_degree))
+    cached_ms = cuda_ms(lambda: render_cached(cache, vm1, it, cfg, bg))
+    r.reanchor_frames, r._icache = VIEWER_REANCHOR_EVERY, None
+    n0 = len(r.frame_stats)
+    for i in range(3 * VIEWER_REANCHOR_EVERY):  # 0.01 deg steps: frames rule
+        cam = viewer_camera(base, 0.01 * (i % VIEWER_REANCHOR_EVERY))
+        r.render_interactive(CLI_H, CLI_W, cam.world_to_camera(),
+                             cam.intrinsics_array(), (0.0, 0.0, 0.0))
+    r.reanchor_frames = 0
+    cycle = r.frame_stats[n0 + VIEWER_REANCHOR_EVERY:]
+    check([s.path for s in cycle] == (["anchor"] + ["cached"] * (
+        VIEWER_REANCHOR_EVERY - 1)) * 2, "re-anchor every 8 frames")
+    every8_ms = np.mean([s.ms for s in cycle])
+    print(f"viewer times 1920x1080 1M SH3 tile 32: exact frame "
+          f"{exact_ms:.3f} ms (render_arrays), anchor build {anchor_ms:.3f} "
+          f"ms, cached frame {cached_ms:.3f} ms, frame with a re-anchor every "
+          f"{VIEWER_REANCHOR_EVERY} {every8_ms:.3f} ms (render_interactive; "
+          f"(anchor + {VIEWER_REANCHOR_EVERY} cached) / "
+          f"{VIEWER_REANCHOR_EVERY} = "
+          f"{(anchor_ms + VIEWER_REANCHOR_EVERY * cached_ms) / VIEWER_REANCHOR_EVERY:.3f})",
+          flush=True)
+    del r, cache
+    viewer_page_drag(dev, params, base)
+    viewer_http(dev, params)
+    return anchor_launches, dict(drag_launches)
+
+
+def viewer_page_drag(dev, params, base):
+    """Drags at the web page's rates (VIEWER_PAGE_PX) through
+    render_interactive, at the render CLI's size and at the page's
+    drag-frame size, each against the exact frame (render_arrays) of the
+    same size, in a renderer of its own per size. Checks that a drag
+    faster than the re-anchor angle re-anchors every frame (K1, K2 and K3
+    once each)."""
+    import numpy as np
+
+    from tpugs_torch.viewer.offline import OfflineRenderer
+
+    bg = (0.0, 0.0, 0.0)
+    for w, h in ((CLI_W, CLI_H), (CLI_W // 2 - CLI_W // 2 % 32,
+                                  CLI_H // 2 - CLI_H // 2 % 32)):
+        r = OfflineRenderer(params, device=dev)  # tile 32, as the page's
+        cam = viewer_camera(base, 0.0, w, h)
+        for _ in range(7):  # the first grows the capacities
+            r.render_arrays(h, w, cam.world_to_camera(),
+                            cam.intrinsics_array(), bg)
+        exact_ms = float(np.mean([s.ms for s in r.frame_stats[1:]]))
+        rates = []
+        for px in VIEWER_PAGE_PX:
+            step = math.degrees(px * VIEWER_PAGE_RAD_PER_PX)
+            r._icache = None
+            n0 = len(r.frame_stats)
+            for i in range(VIEWER_PAGE_FRAMES + 1):  # frame 0: the anchor
+                cam = viewer_camera(base, i * step, w, h)
+                reset_launches()
+                r.render_interactive(h, w, cam.world_to_camera(),
+                                     cam.intrinsics_array(), bg)
+                launches = read_launches()
+                if step > r.reanchor_deg:
+                    check(r.frame_stats[-1].path == "anchor",
+                          f"a {px} px drag frame {i} kept its anchor")
+                    check_launches(launches, ("expand", "align_copy",
+                                              "composite_fwd"), 1,
+                                   "page-rate drag frames")
+            drag = r.frame_stats[n0 + 1:]
+            ms = float(np.mean([s.ms for s in drag]))
+            pattern = "".join("A" if s.path == "anchor" else "c"
+                              for s in drag)
+            rates.append(f"{px} px ({step:.3f} deg) {pattern} {ms:.3f} ms "
+                         f"({ms / exact_ms:.3f}x exact)")
+        print(f"viewer page-rate drag {w}x{h} ({VIEWER_PAGE_FRAMES} frames "
+              f"after the first anchor, mean ms a frame): exact frame "
+              f"{exact_ms:.3f} ms; " + "; ".join(rates), flush=True)
+        del r
+
+
+def viewer_http(dev, params):
+    """ViewerServer on a free port of 127.0.0.1, in a thread: the page,
+    /info, four drag frames, a release, depth and heatmap over HTTP."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    from PIL import Image
+
+    from tpugs_torch.viewer.server import ViewerServer
+
+    srv = ViewerServer(params, width=CLI_W, height=CLI_H, device=dev)
+    http = srv.make_server("127.0.0.1", 0)
+    thread = threading.Thread(target=http.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{http.server_address[1]}"
+
+    def call(path, req=None):
+        body = None if req is None else json.dumps(req).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(base + path, body),
+                                    timeout=120) as resp:
+            check(resp.status == 200, f"{path} answered {resp.status}")
+            return resp.read(), (time.perf_counter() - t0) * 1e3
+
+    snap = lambda v: v - v % srv.renderer.tile  # noqa: E731
+    try:
+        page, _ = call("/")
+        check(b"/render" in page, "the page does not post to /render")
+        info = json.loads(call("/info")[0])
+        check(info["num_gaussians"] == CLI_N and info["max_sh_degree"] == 3,
+              f"/info {info}")
+        reqs = [({"scale": 2, "azimuth": 0.002 * i}, 2) for i in range(4)]
+        reqs += [({"azimuth": 0.006}, 1), ({"azimuth": 0.006, "mode": "depth"},
+                                           1),
+                 ({"azimuth": 0.006, "mode": "heatmap"}, 1)]
+        times = []
+        for req, scale in reqs:
+            jpg, ms = call("/render", req)
+            img = np.asarray(Image.open(io.BytesIO(jpg)))
+            want = (snap(CLI_H // scale), snap(CLI_W // scale), 3)
+            check(img.shape == want, f"{req}: JPEG {img.shape}, want {want}")
+            times.append(round(ms, 1))
+        paths = [s.path for s in srv.renderer.frame_stats]
+        print(f"viewer http: GET / and /info, 7 frames {[r for r, _ in reqs]}"
+              f" -> JPEGs at the snapped sizes; round trips ms {times}; "
+              f"renderer paths {paths}", flush=True)
+        check(paths[-3:] == ["exact"] * 3 and "cached" in paths,
+              f"renderer paths {paths}")
+    finally:
+        http.shutdown()
+        http.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the viewer server did not stop")
+
+
+def phase_tools(tmp, dev):
+    """info, dump_points, the native parse and --trace-dir on the card."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.apps import dump_points, train as train_app
+    from tpugs_torch.data import colmap, native
+
+    proc = subprocess.run([sys.executable, "-m", "tpugs_torch.apps.info",
+                           "--json"], capture_output=True, text=True,
+                          timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(proc.returncode == 0, f"info exited {proc.returncode}: "
+          f"{proc.stderr[-2000:]}")
+    info = json.loads(proc.stdout)
+    check(info["devices"][0]["name"] == torch.cuda.get_device_name(0)
+          and info["render_ok"] and info["matmul_ok"], f"info: {info}")
+
+    ds = os.path.join(tmp, "gt_scene")
+    ply = os.path.join(tmp, "points.ply")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = dump_points.main(["-d", ds, "-o", ply, "--device", dev.type])
+    check(rc == 0, f"dump_points returned {rc}")
+    with open(ply, "rb") as f:
+        head = f.read(200)
+    m = re.search(rb"element vertex (\d+)", head)
+    check(m is not None and int(m.group(1)) == TRAIN_N + TRAIN_CLI_VIEWS,
+          f"dump_points header {head[:80]!r}")
+
+    pts = os.path.join(ds, "sparse", "0", "points3D.bin")
+    t0 = time.perf_counter()
+    xyz_n, rgb_n = native.parse_points3d(pts)
+    native_s = time.perf_counter() - t0
+    colmap.USE_NATIVE = False
+    try:
+        t0 = time.perf_counter()
+        xyz_p, rgb_p = colmap.parse_points3d_bin(pts)
+        numpy_s = time.perf_counter() - t0
+    finally:
+        colmap.USE_NATIVE = True
+    check(np.array_equal(xyz_n, xyz_p) and np.array_equal(rgb_n, rgb_p),
+          "the native parse of points3D.bin differs from the numpy parse")
+
+    trace_dir = os.path.join(tmp, "trace")
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = train_app.main([
+            "-d", os.path.join(tmp, "gt_densify"), "-o",
+            os.path.join(tmp, "trace_out"), "-i", str(TRACE_STEPS),
+            "--no-densify", "--sh-degree", "3", "--log-every", "1",
+            "--save-every", "0", "--max-hits", str(TRAIN_MAX_HITS),
+            "--trace-dir", trace_dir, "--device", dev.type])
+    trace_s = time.perf_counter() - t0
+    check(rc == 0, f"train CLI with --trace-dir returned {rc}")
+    traces = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+    check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+          f"trace files {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    traced = collections.Counter(
+        k for e in kernels for k in PORT_KERNEL_NAMES if k in e["name"])
+    print(f"tools: info names {info['devices'][0]['name']} "
+          f"({info['devices'][0]['memory_mb']:.0f} MB, sm "
+          f"{info['devices'][0]['capability']}); dump_points {m.group(1).decode()}"
+          f" vertices; points3D.bin of {len(xyz_n)} points parsed natively "
+          f"in {native_s:.3f} s, numpy {numpy_s:.3f} s, equal; train CLI "
+          f"{TRACE_STEPS} steps under --trace-dir in {trace_s:.1f} s: "
+          f"{os.path.getsize(traces[0])} bytes, {len(events)} events, "
+          f"{len(kernels)} kernel events; the port's kernels traced "
+          f"{dict(traced)}", flush=True)
+
+
 def bound(nbytes: int, ops: int):
     """(least ms for this work on the card, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2030,6 +2429,8 @@ def main() -> int:
         with Phase("carry", 300):
             carry_rows, carry_launches = phase_carry(dev, params, errs)
             print_rows(carry_rows, "train frame")
+        with Phase("viewer", 300):
+            anchor_launches, drag_launches = phase_viewer(dev, params)
         del params
         with Phase("large-scene", 600):
             large_rows, large_launches, _, _, k1_large = phase_large_scene(
@@ -2042,6 +2443,8 @@ def main() -> int:
         with Phase("train-densify", 900):
             adc_launches, eval_launches, mcmc_launches = phase_train_densify(
                 tmp, dev, card)
+        with Phase("tools", 300):
+            phase_tools(tmp, dev)
     torch.cuda.synchronize()
     cuda_lib.check_guards()  # no kernel found its inputs out of contract
     table = kernel_table(rows + large_rows + carry_rows, errs, {
@@ -2051,7 +2454,8 @@ def main() -> int:
         "scatter_garden_frame": scatter_launches,
         "train_cli": train_cli_launches, "render_cli": cli_launches,
         "adc_train_cli": adc_launches, "adc_eval": eval_launches,
-        "mcmc_train_cli": mcmc_launches})
+        "mcmc_train_cli": mcmc_launches, "viewer_anchor": anchor_launches,
+        "viewer_drag": drag_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -118,6 +118,42 @@ def train_setup(dev, n_total: int = N):
     return step, state
 
 
+def device_attr(events) -> str:
+    """The name of key_averages()' self device time in this torch."""
+    return ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+
+
+def print_profile(prof, units: int, wall_ms: float, unit: str):
+    """The device's busy and idle shares of `wall_ms` (the profiled
+    window's host time over `units` steps or frames), and the top kernels
+    and operators by device time per unit; returns key_averages()."""
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    dev_attr = device_attr(events)
+    dev_us = lambda e: getattr(e, dev_attr)
+    # Kernels and copies carry device_type CUDA; operators (CPU events)
+    # carry the device time of the kernels they launched.
+    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                     key=dev_us, reverse=True)
+    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
+                  and dev_us(e) > 0), key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    print("profiled %d %ss: wall %.3f ms/%s, device busy %.3f ms/%s, "
+          "busy share %.3f, idle share %.3f"
+          % (units, unit, wall_ms / units, unit, busy_ms / units, unit,
+             busy_ms / wall_ms, 1 - busy_ms / wall_ms))
+    for title, rows in (("kernels and copies", kernels), ("operators", ops)):
+        print(f"top {title} by device time per {unit} (ms, calls per {unit}, "
+              f"name):")
+        for e in rows[:15]:
+            print("  %8.3f  %6.1f  %s" % (dev_us(e) / 1e3 / units,
+                                          e.count / units, e.key[:90]))
+    return events
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="chiprun_out/profile")
@@ -176,32 +212,10 @@ def main(argv=None) -> int:
             t += 1
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
-    events = prof.key_averages()
-    dev_attr = ("self_device_time_total"
-                if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    dev_us = lambda e: getattr(e, dev_attr)
-    # Kernels and copies carry device_type CUDA; operators (CPU events)
-    # carry the device time of the kernels they launched.
-    kernels = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                     key=dev_us, reverse=True)
-    ops = sorted((e for e in events if e.device_type != DeviceType.CUDA
-                  and dev_us(e) > 0), key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    print("profiled %d steps: wall %.3f ms/step, device busy %.3f ms/step, "
-          "busy share %.3f, idle share %.3f"
-          % (PROFILE_STEPS, wall_ms / PROFILE_STEPS, busy_ms / PROFILE_STEPS,
-             busy_ms / wall_ms, 1 - busy_ms / wall_ms))
-    for title, rows in (("kernels and copies", kernels), ("operators", ops)):
-        print(f"top {title} by device time per step (ms, calls per step, name):")
-        for e in rows[:15]:
-            print("  %8.3f  %6.1f  %s" % (dev_us(e) / 1e3 / PROFILE_STEPS,
-                                          e.count / PROFILE_STEPS, e.key[:90]))
+    events = print_profile(prof, PROFILE_STEPS, wall_ms, "step")
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"train_step_table_{n}.txt"), "w") as f:
-        f.write(events.table(sort_by=dev_attr, row_limit=80))
+        f.write(events.table(sort_by=device_attr(events), row_limit=80))
     return 0
 
 

@@ -14,6 +14,9 @@ on one NVIDIA GPU:
   - large: the same step at N = 2^24 (the 1M gaussians and the rest behind
     the camera: the classic backward), 2 warm-up and --large-steps timed.
 
+Each train list comes with its peak memory (max_memory_allocated from the
+set-up to the last step).
+
 The set-up comes from chip_smoke.py and the profile script of this
 checkout; the tpugs_torch package timed is the one under --repo (default:
 this checkout), so two checkouts are compared in one call by running this
@@ -65,11 +68,13 @@ def render_frames(tmp: str, frames: int) -> list[float]:
 
 
 def train_steps(n_total: int, warmup: int, steps: int):
-    """-> (ms of each timed step, loss of each timed step)."""
+    """-> (ms of each timed step, loss of each timed step, peak GiB
+    allocated from the set-up to the last step)."""
     import numpy as np
     import torch
 
     dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
     step, state = profile.train_setup(dev, n_total)
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -85,9 +90,10 @@ def train_steps(n_total: int, warmup: int, steps: int):
                                f"{bool(stats.pair_overflow)}")
         ms.append(ev0.elapsed_time(ev1))
         losses.append(loss)
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     del state, step
     torch.cuda.empty_cache()
-    return ms[warmup:], losses[warmup:]
+    return ms[warmup:], losses[warmup:], peak_gib
 
 
 def main(argv=None) -> int:
@@ -111,14 +117,16 @@ def main(argv=None) -> int:
                          text=True, timeout=60).stdout.strip(), flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         render = render_frames(tmp, args.frames)
-    train, train_loss = train_steps(profile.N, 3, args.steps)
-    large, large_loss = train_steps(1 << 24, 2, args.large_steps)
+    train, train_loss, train_peak = train_steps(profile.N, 3, args.steps)
+    large, large_loss, large_peak = train_steps(1 << 24, 2, args.large_steps)
     print(json.dumps({"package": os.path.dirname(tpugs_torch.__file__),
                       "render_cli_ms_per_frame": summary(render),
                       "train_1m_ms_per_step": summary(train),
                       "train_1m_losses": train_loss,
+                      "train_1m_peak_gib": train_peak,
                       "train_2p24_ms_per_step": summary(large),
-                      "train_2p24_losses": large_loss}), flush=True)
+                      "train_2p24_losses": large_loss,
+                      "train_2p24_peak_gib": large_peak}), flush=True)
     return 0
 
 

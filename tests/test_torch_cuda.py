@@ -467,6 +467,53 @@ def test_render_on_card_matches_cpu(dev):
     assert abs(pairs[0] - pairs[1]) <= 1e-4 * pairs[1]
 
 
+@pytest.mark.parametrize("tile", [16, 32])
+def test_cached_viewer_frame_on_card(dev, tile):
+    """The viewer's cached frame at its anchor is render(presort="qkey",
+    need_grads=False) on the card, bit for bit; render_cached launches the
+    forward compositor alone and makes no host read; a frame 0.1 degree
+    away is held to the same frame on the CPU as render()'s."""
+    from tpugs_torch.ops.render_cached import build_frame_cache, render_cached
+
+    p = synthetic_params_numpy(3000, seed=2)
+    cams = orbit_trajectory(p["means"], 3600, 160, 96)[:2]  # 0.1 deg apart
+    cfg = RasterConfig(img_h=96, img_w=160, tile_h=tile, tile_w=tile,
+                       pair_capacity=1 << 18, max_hits_per_tile=4096)
+    frames = []
+    for d in (dev, torch.device("cpu")):
+        tp = params_from_numpy(p, d)
+        scene = [tp[k] for k in NAMES] + [
+            torch.ones(3000, dtype=torch.bool, device=d)]
+        vms = [torch.as_tensor(c.world_to_camera(), dtype=torch.float32,
+                               device=d) for c in cams]
+        it = torch.as_tensor(cams[0].intrinsics_array(), device=d)
+        bg = torch.zeros(3, device=d)
+        cache = build_frame_cache(*scene, vms[0], it, cfg, 3)
+        exact = render(*scene, vms[0], it, cfg, 3, bg, presort="qkey",
+                       need_grads=False)
+        color, final_t = render_cached(cache, vms[0], it, cfg, bg)
+        assert torch.equal(color, exact.color)
+        assert torch.equal(final_t, exact.final_T)
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            counts = (expand.expand_pairs.launches, pack.align_copy.launches,
+                      composite_t.composite_forward.launches)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                color, _ = render_cached(cache, vms[1], it, cfg, bg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            assert (expand.expand_pairs.launches, pack.align_copy.launches,
+                    composite_t.composite_forward.launches) == (
+                counts[0], counts[1], counts[2] + 1)
+            cuda_lib.check_guards()
+        else:
+            color, _ = render_cached(cache, vms[1], it, cfg, bg)
+        frames.append(np_(color))
+    diff = np.abs(frames[0] - frames[1])
+    assert (diff > 1e-4).mean() < 1e-3
+
+
 def _aligned(dev, w, h, tile_w, tile_h, seed):
     proj = _proj(dev, w, h, seed)
     cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile_h, tile_w=tile_w,

@@ -377,7 +377,6 @@ def test_train_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--no-densify", "--mesh", "data=2"], "mesh.*not yet ported.*A12"),
-    (["--no-densify", "--trace-dir", "t"], "trace-dir.*not yet ported"),
 ])
 def test_train_modes_not_yet_ported_raise(tmp_path, extra, match):
     from tpugs_torch.apps import train as train_app
@@ -385,6 +384,23 @@ def test_train_modes_not_yet_ported_raise(tmp_path, extra, match):
     _, argv = _train_scene(tmp_path)
     with pytest.raises(NotImplementedError, match=match):
         train_app.main(argv + extra + ["--device", "cpu"])
+
+
+def test_train_trace_dir_writes_a_trace(tmp_path):
+    """--trace-dir wraps the training in a torch.profiler trace, written
+    into the directory, as tpugs' CLI wraps it in jax.profiler's."""
+    import json
+
+    from tpugs_torch.apps import train as train_app
+
+    _, argv = _train_scene(tmp_path)
+    trace_dir = tmp_path / "trace"
+    assert train_app.main(argv + ["--no-densify", "--trace-dir",
+                                  str(trace_dir), "--device", "cpu"]) == 0
+    (trace,) = trace_dir.glob("trace_*.json")
+    events = json.load(open(trace))["traceEvents"]
+    assert len(events) > 100
+    assert (tmp_path / "out" / "ckpt_0000002.npz").exists()
 
 
 def _guard_on_call(monkeypatch, module, name: str, k: int) -> list:

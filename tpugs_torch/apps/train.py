@@ -5,8 +5,9 @@
       [--mcmc | --no-densify] [--device cuda|cpu]
 
 The same flags as the reference's CLI: ADC densification by default, MCMC
-with --mcmc, none with --no-densify. Not yet ported, and refused with the
-ROADMAP item: --mesh (A12) and --trace-dir (A9).
+with --mcmc, none with --no-densify; --trace-dir writes a torch.profiler
+Chrome trace of the training there. Not yet ported, and refused with the
+ROADMAP item: --mesh (A12).
 """
 from __future__ import annotations
 
@@ -49,7 +50,8 @@ def build_parser():
                    help="device mesh spec for distributed training "
                         "(not yet ported)")
     p.add_argument("--trace-dir", default=None,
-                   help="profiler trace directory (not yet ported)")
+                   help="write a torch.profiler Chrome trace of the "
+                        "training into this directory")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
 
@@ -101,11 +103,6 @@ def main(argv=None):
     if args.mcmc and args.no_densify:
         print("--mcmc and --no-densify are mutually exclusive", file=sys.stderr)
         return 2
-    if args.trace_dir:
-        raise NotImplementedError(
-            "--trace-dir: profiler traces are not yet ported to tpugs_torch "
-            "(ROADMAP A9, utils/profiling.py)")
-
     from tpugs_torch.device import resolve_device
     from tpugs_torch.train.trainer import Trainer
 
@@ -113,7 +110,13 @@ def main(argv=None):
     cfg = config_from_args(args, _given_args(argv))
     trainer = Trainer(args.data, cfg, resume_from=args.resume, device=device)
     # history.jsonl is written by Trainer.train as it goes.
-    trainer.train()
+    if args.trace_dir:
+        from tpugs_torch.utils.profiling import trace
+
+        with trace(args.trace_dir):
+            trainer.train()
+    else:
+        trainer.train()
     return 0
 
 

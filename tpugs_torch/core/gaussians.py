@@ -15,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpugs_torch.core.sh import MAX_SH_DEGREE, sh_coeff_count
 from tpugs_torch.device import resolve_device
 
 PARAM_NAMES = ("means", "quats", "log_scales", "opacity_logits", "sh")
@@ -81,6 +82,14 @@ class GaussianState:
     def capacity(self) -> int:
         return self.means.shape[0]
 
+    @property
+    def max_sh_degree(self) -> int:
+        return int(round(self.sh.shape[-1] ** 0.5)) - 1
+
+    def num_alive(self) -> torch.Tensor:
+        """[] int32 count of the live slots (on the state's device)."""
+        return torch.sum(self.alive.to(torch.int32)).to(torch.int32)
+
     def params(self) -> dict:
         """The five learnable arrays as a dict (the optimizer's groups)."""
         return {
@@ -90,6 +99,10 @@ class GaussianState:
             "log_scales": self.log_scales,
             "quats": self.quats,
         }
+
+    def replace_params(self, p: dict) -> "GaussianState":
+        """A state with the five arrays of `p` and this state's alive."""
+        return dataclasses.replace(self, **{k: p[k] for k in PARAM_NAMES})
 
     @staticmethod
     def create(means, quats, log_scales, opacity_logits, sh,
@@ -118,6 +131,24 @@ class GaussianState:
             sh=pad(sh),
             alive=torch.arange(cap, device=device) < n,
         )
+
+    @staticmethod
+    def empty(capacity: int, sh_degree: int = MAX_SH_DEGREE,
+              device="cuda") -> "GaussianState":
+        """`capacity` free slots (identity quaternions, zeros elsewhere) on
+        `device` ('cuda' unless 'cpu' is asked for)."""
+        device = resolve_device(device)
+        c = sh_coeff_count(sh_degree)
+        z = lambda *shape: torch.zeros(shape, dtype=torch.float32,
+                                       device=device)
+        quats = z(capacity, 4)
+        quats[:, 0] = 1.0
+        return GaussianState(means=z(capacity, 3), quats=quats,
+                             log_scales=z(capacity, 3),
+                             opacity_logits=z(capacity),
+                             sh=z(capacity, 3, c),
+                             alive=torch.zeros(capacity, dtype=torch.bool,
+                                               device=device))
 
     def compact_arrays(self) -> dict:
         """The live gaussians as dense numpy arrays (for PLY export)."""

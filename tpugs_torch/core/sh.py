@@ -62,3 +62,8 @@ def eval_sh(degree: int, sh_coeffs: torch.Tensor, dirs: torch.Tensor) -> torch.T
 def rgb_to_sh_dc(rgb: torch.Tensor) -> torch.Tensor:
     """DC coefficients whose degree-0 colour is rgb: (rgb - 0.5) / C0."""
     return (rgb - 0.5) / SH_C0
+
+
+def sh_dc_to_rgb(dc: torch.Tensor) -> torch.Tensor:
+    """The colour that degree 0 evaluates to: dc * C0 + 0.5."""
+    return dc * SH_C0 + 0.5

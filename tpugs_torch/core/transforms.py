@@ -100,9 +100,45 @@ def inv_cov2d(cov2d: torch.Tensor):
     return conic, det
 
 
+class _WorldToCamera(torch.autograd.Function):
+    """p R^T + t, with the arithmetic of a BLAS's fused multiply-add
+    chain, fma(z, R2, fma(y, R1, x R0)) + t, which the CPU's matmul computes
+    for 15 rows and more, done elementwise: each fma as the exact float64
+    product plus the float32 sum, rounded to float32. A BLAS picks its
+    kernel, and its rounding, by the number of rows; this gives each point
+    the same bits however many points come with it, on the CPU and the
+    card. The viewer's cached frame (ops/render_cached.py) re-projects per
+    pair what render() projects per gaussian, and the two agree bit for
+    bit. The backward is the matmul's."""
+
+    @staticmethod
+    def forward(ctx, positions, viewmat):
+        ctx.save_for_backward(positions, viewmat)
+        R, t = viewmat[:3, :3], viewmat[:3, 3]
+        acc = positions[..., 0:1] * R[:, 0]
+        for k in (1, 2):
+            acc = (positions[..., k:k + 1].double() * R[:, k].double()
+                   + acc.double()).float()
+        return acc + t
+
+    @staticmethod
+    def backward(ctx, g):
+        positions, viewmat = ctx.saved_tensors
+        d_pos = d_vm = None
+        if ctx.needs_input_grad[0]:
+            d_pos = g @ viewmat[:3, :3]
+        if ctx.needs_input_grad[1]:
+            g2, p2 = g.reshape(-1, 3), positions.reshape(-1, 3)
+            d_vm = torch.zeros_like(viewmat)
+            d_vm[:3, :3] = g2.T @ p2
+            d_vm[:3, 3] = g2.sum(0)
+        return d_pos, d_vm
+
+
 def world_to_camera_points(positions: torch.Tensor, viewmat: torch.Tensor) -> torch.Tensor:
-    """Transform world points [..., 3] by a 4x4 world->camera matrix."""
-    return positions @ viewmat[:3, :3].T + viewmat[:3, 3]
+    """Transform world points [..., 3] by a 4x4 world->camera matrix
+    (_WorldToCamera: the same bits for a point whatever the row count)."""
+    return _WorldToCamera.apply(positions, viewmat)
 
 
 def cov3d_components(log_scales, quats, scale_modifier: float = 1.0):

@@ -1,6 +1,9 @@
-"""COLMAP sparse-reconstruction binary loader (numpy), as the numpy path of
-tpugs/data/colmap.py: cameras.bin, images.bin and points3D.bin, little
-endian. (The reference's optional ctypes loader is not ported.)"""
+"""COLMAP sparse-reconstruction binary loader, as tpugs/data/colmap.py:
+cameras.bin, images.bin and points3D.bin, little endian. Each parser
+takes the native C++ loader (data/native.py) unless TPUGS_NATIVE=0 is set
+(or USE_NATIVE is False), and then the numpy parse below. Where the native
+loader is asked for and cannot be built or loaded, the parser raises: it
+never falls back to numpy in silence, as the reference does."""
 from __future__ import annotations
 
 import dataclasses
@@ -43,7 +46,37 @@ class ColmapImage:
     name: str
 
 
+@dataclasses.dataclass
+class SparsePoint:
+    xyz: np.ndarray
+    rgb: np.ndarray  # uint8
+
+
+USE_NATIVE = os.environ.get("TPUGS_NATIVE", "1") != "0"
+
+
+def _native():
+    """The native loader module, or None when TPUGS_NATIVE=0 opted out.
+    Raises native.NativeUnavailable when it cannot be built or loaded."""
+    if not USE_NATIVE:
+        return None
+    from tpugs_torch.data import native
+
+    native.lib()
+    return native
+
+
 def parse_cameras_bin(path: str) -> dict[int, ColmapCamera]:
+    nat = _native()
+    if nat is not None:
+        cams = {}
+        for row in nat.parse_cameras(path):
+            model = CameraModel(int(row[1]))
+            np_params = _MODEL_NUM_PARAMS[model]
+            cams[int(row[0])] = ColmapCamera(
+                int(row[0]), model, int(row[2]), int(row[3]),
+                row[4: 4 + np_params].copy())
+        return cams
     cams: dict[int, ColmapCamera] = {}
     with open(path, "rb") as f:
         buf = f.read()
@@ -64,6 +97,12 @@ def parse_cameras_bin(path: str) -> dict[int, ColmapCamera]:
 
 def parse_images_bin(path: str) -> list[ColmapImage]:
     """Poses and names; the 2D observations are skipped."""
+    nat = _native()
+    if nat is not None:
+        rec, names = nat.parse_images(path)
+        return [ColmapImage(int(rec[i, 0]), rec[i, 1:5].copy(),
+                            rec[i, 5:8].copy(), int(rec[i, 8]), names[i])
+                for i in range(rec.shape[0])]
     images: list[ColmapImage] = []
     with open(path, "rb") as f:
         buf = f.read()
@@ -90,6 +129,9 @@ def parse_images_bin(path: str) -> list[ColmapImage]:
 def parse_points3d_bin(path: str) -> tuple[np.ndarray, np.ndarray]:
     """-> (xyz [N, 3] float64, rgb [N, 3] uint8); tracks skipped. A file
     whose tracks are all empty is read in one structured view."""
+    nat = _native()
+    if nat is not None:
+        return nat.parse_points3d(path)
     with open(path, "rb") as f:
         buf = f.read()
     (num,) = struct.unpack_from("<Q", buf, 0)

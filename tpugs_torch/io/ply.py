@@ -10,6 +10,18 @@ from __future__ import annotations
 import numpy as np
 
 
+def write_gaussian_ply(path, means, sh, opacity_logits, log_scales, quats):
+    """means [N,3], sh [N,3,C], opacity_logits [N], log_scales [N,3],
+    quats [N,4], through the native C++ writer
+    (native/colmap_io.cpp::tpugs_write_gaussian_ply, data/native.py), as the
+    reference's write_gaussian_ply; raises where the native library cannot
+    be built or loaded. write_gaussian_ply_numpy writes the same bytes."""
+    from tpugs_torch.data import native
+
+    native.write_gaussian_ply(path, means, sh, opacity_logits, log_scales,
+                              quats)
+
+
 def write_gaussian_ply_numpy(path, means, sh, opacity_logits, log_scales,
                              quats):
     """means [N,3], sh [N,3,C], opacity_logits [N], log_scales [N,3],
@@ -96,3 +108,26 @@ def read_gaussian_ply(path):
         "log_scales": take(["scale_0", "scale_1", "scale_2"]),
         "quats": take(["rot_0", "rot_1", "rot_2", "rot_3"]),
     }
+
+
+def write_points_ply(path, points, colors=None):
+    """Debug point-cloud PLY: float x y z per vertex, and uchar red green
+    blue from colors in [0, 1] when given."""
+    pts = np.asarray(points, np.float32)
+    n = pts.shape[0]
+    header = ["ply", "format binary_little_endian 1.0", f"element vertex {n}",
+              "property float x", "property float y", "property float z"]
+    if colors is not None:
+        header += ["property uchar red", "property uchar green",
+                   "property uchar blue"]
+    header += ["end_header"]
+    with open(path, "wb") as f:
+        f.write(("\n".join(header) + "\n").encode("ascii"))
+        if colors is None:
+            f.write(pts.astype("<f4").tobytes())
+        else:
+            cols = np.asarray(np.clip(colors, 0, 1) * 255 + 0.5, np.uint8)
+            rec = np.zeros(n, dtype=[("xyz", "<f4", 3), ("rgb", "u1", 3)])
+            rec["xyz"] = pts
+            rec["rgb"] = cols
+            f.write(rec.tobytes())

@@ -343,6 +343,11 @@ def bin_gaussians_expand_kernel(proj: ProjectionOutput, img_w: int,
     return b
 
 
+def max_pairs_per_tile(binning: BinningResult) -> torch.Tensor:
+    """The longest per-tile run [] (to choose or check max_hits)."""
+    return torch.max(binning.tile_stop - binning.tile_start)
+
+
 def clamp_tile_segments(binning: BinningResult, max_hits: int):
     """Truncate every tile's segment to its first (front-most) max_hits
     entries. Returns (clamped BinningResult, pre-clamp max_tile_hits [])."""

@@ -35,7 +35,7 @@ from tpugs_torch.core.gaussians import GaussianState
 from tpugs_torch.core.init import init_from_sfm
 from tpugs_torch.data.dataset import Dataset
 from tpugs_torch.device import resolve_device
-from tpugs_torch.io.ply import write_gaussian_ply_numpy
+from tpugs_torch.io.ply import write_gaussian_ply
 from tpugs_torch.ops.render import RasterConfig, render
 from tpugs_torch.optim.adam import (AdamConfig, AdamState, adam_init,
                                     adam_step, zero_slots)
@@ -700,7 +700,7 @@ class Trainer:
         state as ckpt_<step>.npz (resumable)."""
         path = os.path.join(self.cfg.output_dir, f"model_{step:07d}.ply")
         arrays = self.gaussian_state().compact_arrays()
-        write_gaussian_ply_numpy(
+        write_gaussian_ply(
             path, arrays["means"], arrays["sh"], arrays["opacity_logits"],
             arrays["log_scales"], arrays["quats"])
         if full:

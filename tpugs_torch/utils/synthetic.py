@@ -69,3 +69,10 @@ def pad_behind_camera(params: dict[str, torch.Tensor], n_total: int,
 def synthetic_intrinsics_numpy(img_w: int, img_h: int, fov_deg: float = 60.0) -> np.ndarray:
     f = 0.5 * img_w / np.tan(np.radians(fov_deg) / 2)
     return np.asarray([f, f, img_w / 2.0, img_h / 2.0], np.float32)
+
+
+def synthetic_intrinsics(img_w: int, img_h: int, fov_deg: float = 60.0,
+                         device="cpu") -> torch.Tensor:
+    """(fx, fy, cx, cy) float32 on `device`: synthetic_intrinsics_numpy."""
+    return torch.from_numpy(
+        synthetic_intrinsics_numpy(img_w, img_h, fov_deg)).to(device)

@@ -20,6 +20,7 @@ class OrbitCamera:
     azimuth: float = 0.0  # radians, around +Y
     elevation: float = 0.0  # radians, up from the horizontal plane
     fov_y_deg: float = 60.0
+    _version: int = 0
 
     @staticmethod
     def from_points(points: np.ndarray, fov_y_deg: float = 60.0) -> "OrbitCamera":
@@ -35,6 +36,29 @@ class OrbitCamera:
             radius=max(extent * 1.5, 1e-3),
             fov_y_deg=fov_y_deg,
         )
+
+    def rotate(self, d_azimuth: float, d_elevation: float):
+        self.azimuth += d_azimuth
+        self.elevation = float(
+            np.clip(self.elevation + d_elevation, -1.45, 1.45))
+        self._version += 1
+
+    def pan(self, dx: float, dy: float):
+        """Pan in the camera's right/up plane, scaled by the radius."""
+        fwd = self._forward()
+        right = np.cross(fwd, [0.0, -1.0, 0.0])
+        right /= np.linalg.norm(right) + 1e-12
+        up = np.cross(right, fwd)
+        self.target = self.target + (right * dx + up * dy) * self.radius
+        self._version += 1
+
+    def zoom(self, factor: float):
+        self.radius = float(np.clip(self.radius * factor, 1e-3, 1e6))
+        self._version += 1
+
+    def version(self) -> int:
+        """Counts the moves: a viewer re-renders when it changed."""
+        return self._version
 
     def _forward(self) -> np.ndarray:
         """Unit vector from eye toward target."""

@@ -1,5 +1,6 @@
-"""Offline viewer: render camera trajectories to image files, as in
-tpugs/viewer/offline.py (without its cached interactive path).
+"""Offline viewer: render camera trajectories to image files, and the
+frame-coherent interactive path of the web viewer (viewer/server.py), as in
+tpugs/viewer/offline.py.
 
 Three render modes: RGB, depth (1 - final_T opacity proxy with a turbo
 colormap) and a contributor-count heatmap.
@@ -21,6 +22,7 @@ from tpugs_torch.core.camera import CameraInfo
 from tpugs_torch.core.gaussians import params_from_numpy
 from tpugs_torch.device import resolve_device
 from tpugs_torch.ops.render import RasterConfig, render
+from tpugs_torch.ops.render_cached import build_frame_cache, render_cached
 
 # Polynomial fit of the Turbo colormap (Google AI blog, 2019).
 _TURBO_COEFFS = np.array(
@@ -46,24 +48,62 @@ def _stderr_log(msg: str):
 @dataclasses.dataclass
 class FrameStats:
     """One rendered frame: its pair count, busiest tile and render time
-    (CUDA events on the card, the host clock on the CPU)."""
+    (CUDA events on the card, the host clock on the CPU). path: "exact"
+    (render_arrays), "anchor" (a cached frame that built its anchor first)
+    or "cached" (a cached frame on an earlier anchor, whose pair count and
+    busiest tile it shows)."""
 
     width: int
     height: int
     num_pairs: int
     max_tile_hits: int
     ms: float
+    path: str = "exact"
+
+
+def _frame_clock(dev: torch.device):
+    """Start a frame's clock on `dev`; the returned function stops it and
+    gives the ms: CUDA events on the device's current stream (named, so
+    that a caller in any thread times the right device) after waiting for
+    them, or the host clock on the CPU."""
+    if dev.type == "cuda":
+        stream = torch.cuda.current_stream(dev)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record(stream)
+
+        def stop() -> float:
+            t1.record(stream)
+            t1.synchronize()
+            return t0.elapsed_time(t1)
+
+        return stop
+    h0 = time.perf_counter()
+    return lambda: (time.perf_counter() - h0) * 1e3
 
 
 class OfflineRenderer:
     """Forward-only renderer that checks every frame's pair_overflow and
     hit_overflow flags, and then grows the capacities and renders again
     ("grow", default), warns ("warn") or raises ("error"); it never renders
-    silently wrong. tile defaults to 32."""
+    silently wrong. tile defaults to 32.
+
+    render_interactive re-anchors its cached frame when the camera rotated
+    more than reanchor_deg degrees or its center moved more than
+    reanchor_shift_frac of its distance from the origin since the anchor,
+    or after reanchor_frames cached frames (0: no frame limit). The
+    dominant error of a cached frame is the anchor's tile membership going
+    stale, which sets in at screen shifts of about half a tile. A drag
+    that turns more than reanchor_deg a frame (the web page's, from 2 mouse
+    pixels per round trip) re-anchors every frame, and such a frame costs
+    the anchor build and a cached frame: more than the exact frame
+    (render_arrays) it stands in for."""
 
     def __init__(self, params: dict, sh_degree: int = -1, tile: int = 32,
                  pair_capacity: int = 1 << 21, max_hits: int = 2048,
                  on_overflow: str = "grow", log=None, presort: str = "fastest",
+                 reanchor_deg: float = 0.25, reanchor_shift_frac: float = 0.01,
+                 reanchor_frames: int = 0,
                  device: str | torch.device = "cuda"):
         self.device = resolve_device(device)
         self.params = params_from_numpy(
@@ -85,6 +125,12 @@ class OfflineRenderer:
         self.log = log if log is not None else _stderr_log
         self._warned = set()
         self.frame_stats: list[FrameStats] = []
+        self.reanchor_deg = reanchor_deg
+        self.reanchor_shift_frac = reanchor_shift_frac
+        self.reanchor_frames = reanchor_frames
+        # {"key", "cache", "vm", "intr", "age"} of the current anchor, and
+        # its "num_pairs" and "max_tile_hits" as read at its build.
+        self._icache = None
 
     def _cfg(self, h: int, w: int) -> RasterConfig:
         return RasterConfig(img_h=h, img_w=w, tile_h=self.tile,
@@ -116,6 +162,7 @@ class OfflineRenderer:
             f"{new_pairs}, max_hits {self.max_hits}->{new_hits}"
         )
         self.pair_capacity, self.max_hits = new_pairs, new_hits
+        self._icache = None  # its aligned layout is sized for the old ones
         return True
 
     def render_arrays(self, h: int, w: int, viewmat, intr, background,
@@ -129,13 +176,7 @@ class OfflineRenderer:
         it = torch.as_tensor(np.asarray(intr, np.float32), device=dev)
         bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
         p = self.params
-        cuda = dev.type == "cuda"
-        if cuda:
-            t0 = torch.cuda.Event(enable_timing=True)
-            t1 = torch.cuda.Event(enable_timing=True)
-            t0.record()
-        else:
-            h0 = time.perf_counter()
+        clock = _frame_clock(dev)
         for _ in range(8):  # growth converges: capacities only increase
             out = render(p["means"], p["quats"], p["log_scales"],
                          p["opacity_logits"], p["sh"], self.alive, vm, it,
@@ -149,17 +190,78 @@ class OfflineRenderer:
             if not self._handle_overflow(h, w, num_pairs, pair_of, tile_hits,
                                          hit_of):
                 break
-        if cuda:
-            t1.record()
-            t1.synchronize()
-            ms = t0.elapsed_time(t1)
-        else:
-            ms = (time.perf_counter() - h0) * 1e3
+        ms = clock()
         # The frame's kernels have run: a contract violation found on the
         # card raises before the frame is returned.
         cuda_lib.check_guards()
         self.frame_stats.append(FrameStats(w, h, num_pairs, tile_hits, ms))
         return out.color, out.final_T, out.n_contrib
+
+    def _needs_reanchor(self, state, vm: np.ndarray, intr: np.ndarray) -> bool:
+        if not np.array_equal(state["intr"], intr):
+            return True  # the FOV moved: footprints and binning changed
+        if self.reanchor_frames and state["age"] >= self.reanchor_frames:
+            return True
+        a, b = state["vm"], vm
+        ra, rb = a[:3, :3], b[:3, :3]
+        cos = np.clip((np.trace(ra.T @ rb) - 1.0) * 0.5, -1.0, 1.0)
+        if np.degrees(np.arccos(cos)) > self.reanchor_deg:
+            return True
+        ca, cb = -ra.T @ a[:3, 3], -rb.T @ b[:3, 3]
+        return bool(np.linalg.norm(ca - cb)
+                    > self.reanchor_shift_frac * (np.linalg.norm(ca) + 1e-9))
+
+    def render_interactive(self, h: int, w: int, viewmat, intr, background,
+                           sh_degree: int = -1):
+        """Frame-coherent path for continuous camera motion -> (color,
+        final_T) tensors (ops/render_cached.py): the pair list is built at
+        an anchor camera, kept while the camera stays within the re-anchor
+        thresholds, and each frame re-projects every pair exactly and runs
+        only the forward compositor. A bounded approximation for display;
+        never used by evaluation or training. The host reads: the anchor
+        build's pair count and overflow scalars, and the frame's end
+        (the clock's event, the guard check), as render_arrays makes.
+        Appends the frame's FrameStats."""
+        deg = self.sh_degree if sh_degree < 0 else min(sh_degree, self.max_sh_degree)
+        key = (h, w, deg)
+        dev = self.device
+        vm = np.asarray(viewmat, np.float32)
+        intr_np = np.asarray(intr, np.float32)
+        vm_t = torch.as_tensor(vm, device=dev)
+        it = torch.as_tensor(intr_np, device=dev)
+        bg = torch.as_tensor(np.asarray(background, np.float32), device=dev)
+        p = self.params
+        clock = _frame_clock(dev)
+        st = self._icache
+        path = "cached"
+        if (st is None or st["key"] != key
+                or self._needs_reanchor(st, vm, intr_np)):
+            path = "anchor"
+            for _ in range(8):  # growth converges: capacities only increase
+                cache = build_frame_cache(
+                    p["means"], p["quats"], p["log_scales"],
+                    p["opacity_logits"], p["sh"], self.alive, vm_t, it,
+                    self._cfg(h, w), deg)
+                num_pairs, pair_of, tile_hits = (
+                    int(cache.num_pairs), bool(cache.pair_overflow),
+                    int(cache.max_tile_hits))
+                hit_of = tile_hits > self.max_hits
+                if not (pair_of or hit_of):
+                    break
+                if not self._handle_overflow(h, w, num_pairs, pair_of,
+                                             tile_hits, hit_of):
+                    break
+            st = {"key": key, "cache": cache, "vm": vm, "intr": intr_np,
+                  "age": 0, "num_pairs": num_pairs, "max_tile_hits": tile_hits}
+            self._icache = st
+        color, final_t = render_cached(st["cache"], vm_t, it,
+                                       self._cfg(h, w), bg)
+        st["age"] += 1
+        ms = clock()
+        cuda_lib.check_guards()
+        self.frame_stats.append(FrameStats(w, h, st["num_pairs"],
+                                           st["max_tile_hits"], ms, path))
+        return color, final_t
 
     def render_camera(self, cam: CameraInfo, mode: str = "rgb",
                       background=(0.0, 0.0, 0.0),
