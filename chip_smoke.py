@@ -92,6 +92,21 @@ a nonzero exit:
      train-cli dataset's points and cameras, the native parse of its
      points3D.bin equals the numpy parse, and the train CLI writes a
      torch.profiler trace of 3 steps on the densify dataset;
+  9. the mesh (parallel/, after phase tools) at the train-step frame:
+     (a) data=1,gauss=1 in this process on an NCCL world of size 1: the
+     image of the tile-sharded render equal (within 5e-7) to the
+     single-device render, step 0 of dist_train.make_dist_train_step (the
+     exchange capacity auto-tuned) with its normalised gradient (Adam's
+     first moment) against the single-device step's by the card-vs-CPU
+     rule, K1-K5 once per step, the mesh step timed beside the
+     single-device step; then the train CLI with --mesh data=1,gauss=1
+     under `torchrun --standalone` on the densify dataset, 4 steps; (b)
+     data=1,gauss=2 as two spawned ranks on the one card (NCCL refuses two
+     ranks on one device, so the phase names gloo, which takes card
+     tensors through host memory), the same checks on each rank's shard,
+     rank 1 at row offset 14 with its K1 (row-clipped rects), K2, K3, K4
+     and K5 held against their plain versions and timed; the exchange's
+     bytes per rank and step and the send capacity printed;
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -109,7 +124,8 @@ Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
 (the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
-anchor build and its drag among them),
+anchor build and its drag, the mesh steps of (a) and of each rank of (b)
+among them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -1089,7 +1105,7 @@ def phase_train_step(dev, errs):
     return rows, launches, step_ms
 
 
-def backward_kernel_rows(dev, a4, a5, sort_args, errs):
+def backward_kernel_rows(dev, a4, a5, sort_args, errs, where="train frame"):
     """K4 and K5 timed alone on the inputs a train step gave them, beside
     their plain versions, their bounds and (K5) index_add_; the gid sort
     timed on its own inputs. Returns their kernel rows."""
@@ -1098,7 +1114,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
 
     from tpugs_torch.ops import composite_t, pack, segreduce
 
-    check_backward_kernels(a4, a5, errs, "train frame")
+    check_backward_kernels(a4, a5, errs, where)
     cfg, astart, astop, k_last = a4[0], a4[1], a4[2], a4[7]
     got = without_sync(lambda: composite_t.composite_backward(*a4),
                        "composite_backward")
@@ -1119,7 +1135,7 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
                       for t in pick])
     err8 = float((got[:, cols] - sub[:, cols]).abs().max())
     check(err8 == 0.0, f"backward compositor differs from its plain version "
-          f"on 8 tiles of the train frame by {err8}")
+          f"on 8 tiles of the {where} by {err8}")
     entries = int(counts.sum())
     # The (pixel, entry) pairs the gradient needs: each pixel inside the
     # image, down from its last contributor (pixels past the image's edge
@@ -1130,8 +1146,8 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs):
     k4_ops = 53 * walked
     k4_bytes = 2 * entries * 36 + cfg.num_tiles * cfg.pix * 24
     rows = [Row("composite_bwd", k_ms, alone_ms, pl_ms, k4_bytes, k4_ops)]
-    step1_backward(a4, alone_ms, "train frame")
-    print(f"backward compositor on the train frame: {entries} entries, "
+    step1_backward(a4, alone_ms, where)
+    print(f"backward compositor on the {where}: {entries} entries, "
           f"{walked} in-image (pixel, entry) pairs to the last contributor; "
           f"bit-identical to its plain version (also on 8 tiles incl. the "
           f"busiest, {int(counts[busiest])} entries)", flush=True)
@@ -2360,6 +2376,324 @@ def phase_tools(tmp, dev):
           f"{dict(traced)}", flush=True)
 
 
+MESH_STEPS = 4  # timed steps after step 0, per mesh configuration
+MESH_CLI_STEPS = 4
+ULP2 = 5e-7  # mesh colour against the single-device render (tpugs' bound)
+MESH_RANK_TIMEOUT_S = 240
+
+
+def mesh_scene(dev):
+    """The garden frame of phase train-step: (raster config, whole train
+    state, viewmat, intrinsics, target)."""
+    import torch
+
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import TrainState, initial_key
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    w, h = TRAIN_W, TRAIN_H
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=32, tile_w=32,
+                       pair_capacity=TRAIN_PAIR_CAPACITY,
+                       max_hits_per_tile=TRAIN_MAX_HITS)
+    params = garden_params(dev)
+    state = TrainState(params=params,
+                       alive=torch.ones(TRAIN_N, dtype=torch.bool,
+                                        device=dev),
+                       adam=adam_init(params), adc=adc_init(TRAIN_N, dev),
+                       key=initial_key(0))
+    intr = torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev)
+    target = torch.rand((h, w, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    return cfg, state, torch.eye(4, device=dev), intr, target
+
+
+def timed_steps(step_fn, state, target, viewmat, intr, first: int,
+                steps: int):
+    """steps train steps from step `first`, each timed with CUDA events:
+    (state, ms per step, losses); every step's loss finite, no overflow."""
+    import torch
+
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ms, losses = [], []
+    for i in range(first, first + steps):
+        ev0.record()
+        state, stats = step_fn(state, target, viewmat, intr,
+                               torch.tensor(float(i)), 3)
+        ev1.record()
+        torch.cuda.synchronize()
+        ms.append(ev0.elapsed_time(ev1))
+        losses.append(float(stats.loss))
+        check(math.isfinite(losses[-1]), f"step {i}: loss {losses[-1]}")
+        check(not bool(stats.pair_overflow) and not bool(stats.hit_overflow)
+              and not bool(stats.send_overflow is not None
+                           and stats.send_overflow),
+              f"step {i} overflowed")
+    return state, ms, losses
+
+
+def mesh_check(mesh, dev, errs, where: str, kernel_rows: bool):
+    """One rank's part of phase mesh at the garden shape: the assembled
+    image against the single-device render (ULP2), step 0 of
+    dist_train.make_dist_train_step (the exchange capacity auto-tuned as
+    the Trainer tunes it) with its normalised gradient (Adam's first moment
+    after one step) against the single-device step's on this shard's rows
+    (the card-vs-CPU rule), then MESH_STEPS timed steps, each through the
+    sorted path's five kernels. kernel_rows: step 0's kernels held against
+    their plain versions and timed (forward_kernel_rows,
+    backward_kernel_rows). Returns this rank's numbers."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.ops import composite_t, expand, pack, segreduce
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.ops.render import render
+    from tpugs_torch.parallel import dist_train as DT
+    from tpugs_torch.parallel import tile_shard as TS
+    from tpugs_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg, whole, viewmat, intr, target = mesh_scene(dev)
+    state = DT.shard_train_state(mesh, whole)
+    n_loc = state.alive.shape[0]
+    worst = DT.measure_max_send_count(mesh, cfg, state.params, state.alive,
+                                      [viewmat.cpu().numpy()],
+                                      [intr.cpu().numpy()])
+    cap = DT.auto_send_capacity(worst, n_loc)
+    g = mesh.gauss
+    row_lo = mesh.gauss_index * TS.rows_per_device(cfg, g)
+    local_cfg = TS.local_raster_config(
+        cfg, g, TS.default_local_pair_capacity(cfg.pair_capacity, g))
+    p = state.params
+    with torch.no_grad():
+        proj = project_gaussians(p["means"], p["quats"], p["log_scales"],
+                                 p["opacity_logits"], p["sh"], state.alive,
+                                 viewmat, intr, cfg.img_w, cfg.img_h, 3)
+        color_t, _, _, diag = TS.exchange_and_render_local(
+            proj, cfg, local_cfg, mesh, cap, torch.zeros(3, device=dev),
+            need_grads=False)
+        image = TS.assemble_image(cfg, mesh, color_t)
+        w = whole.params
+        single = render(w["means"], w["quats"], w["log_scales"],
+                        w["opacity_logits"], w["sh"], whole.alive, viewmat,
+                        intr, cfg, 3, torch.zeros(3, device=dev),
+                        need_grads=False).color
+    img_err = float((image - single).abs().max())
+    check(img_err <= ULP2, f"{where}: assembled image differs from the "
+          f"single-device render by {img_err}")
+    report = TS.comm_report(cfg, g, TRAIN_N, cap, int(diag["max_send_count"]),
+                            int(diag["num_pairs"]))
+
+    step_fn = DT.make_dist_train_step(
+        TrainConfig(densify_mode="none", dist_send_capacity=cap), cfg, mesh,
+        1.0)
+    torch.cuda.synchronize()
+    reset_launches()
+    with capturing(expand, "expand_pairs") as k1, \
+            capturing(pack, "align_copy") as k2, \
+            capturing(composite_t, "composite_forward") as k3, \
+            capturing(composite_t, "composite_backward") as k4, \
+            capturing(segreduce, "segment_sum_sorted") as k5, \
+            capturing(segreduce, "sort_by_key") as srt:
+        state, ms0, _ = timed_steps(step_fn, state, target, viewmat, intr,
+                                    0, 1)
+    m_mesh = {k: v.clone() for k, v in state.adam.m.items()}
+    state, ms, losses = timed_steps(step_fn, state, target, viewmat, intr,
+                                    1, MESH_STEPS)
+    launches = read_launches()
+    check_launches(launches, SORTED_PATH, 1 + MESH_STEPS, f"{where} steps")
+    # K1 took the row-clipped slice; K3 and K4 its first tile row.
+    itab = k1[0][0]
+    owners = itab[1] > 0
+    check(bool(owners.any()) and int(itab[3][owners].min()) >= row_lo
+          and int((itab[3] + torch.div(itab[1], itab[4],
+                                       rounding_mode="floor"))[owners].max())
+          <= row_lo + TS.rows_per_device(cfg, g),
+          f"{where}: K1's rects are not clipped to rows {row_lo}+")
+    check(k3[0][4] == row_lo and k4[0][8] == row_lo,
+          f"{where}: compositors at row_offset {k3[0][4]}, {k4[0][8]}, "
+          f"not {row_lo}")
+    single_fn = make_train_step(TrainConfig(densify_mode="none"), cfg, 1.0)
+    one, _ = single_fn(whole, target, viewmat, intr, torch.tensor(0.0), 3)
+    lo = mesh.gauss_index * n_loc
+    shares = {k: close_share(m_mesh[k], one.adam.m[k][lo:lo + n_loc])
+              for k in NAMES}
+    check(min(shares.values()) >= MIN_GRAD_MATCH, f"{where}: normalised "
+          f"gradients within tolerance of the single-device step's on only "
+          f"{shares}")
+    rows = []
+    if kernel_rows:
+        with torch.no_grad():
+            rows = forward_kernel_rows(dev, k1[0], k2[0], k3[0], errs, where)
+            rows += backward_kernel_rows(dev, k4[0], k5[0], srt[0], errs,
+                                         where)
+        print_rows(rows, where)
+    return {"ms_step0": ms0[0], "ms": ms, "losses": losses,
+            "launches": launches, "send_capacity": cap, "max_send": worst,
+            "n_loc": n_loc, "a2a_bytes": report["all_to_all_bytes_per_device"],
+            "color_bytes": report["color_all_gather_bytes"],
+            "pairs": int(diag["num_pairs"]), "row_offset": row_lo,
+            "img_err": img_err, "grad_share": min(shares.values())}
+
+
+def mesh_rank(rank: int, store: str, out: str):
+    """Rank `rank` of phase mesh (b): a gloo world of two ranks on card 0,
+    data=1,gauss=2 (NCCL refuses two ranks on one card); rank 1 holds its
+    kernels against their plain versions. Writes rank<r>.json or
+    rank<r>.err into `out`."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{store}", rank=rank, world_size=2,
+            timeout=datetime.timedelta(seconds=MESH_RANK_TIMEOUT_S))
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        from tpugs_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh((1, 2), device=dev, backend="gloo")
+        print(f"mesh rank {rank}: backend gloo named on {dev}: gloo takes "
+              f"the card tensors of every collective through host memory",
+              flush=True)
+        errs = {}
+        res = mesh_check(mesh, dev, errs, f"mesh 1x2 rank {rank}",
+                         kernel_rows=rank == 1)
+        res["errs"] = errs
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    except BaseException:
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_mesh(tmp, dev, errs):
+    """(a) World size 1, NCCL, data=1,gauss=1 in this process: mesh_check
+    against the single-device step, the single-device step timed beside the
+    mesh step; then the train CLI under torchrun with --mesh
+    data=1,gauss=1 on the densify dataset. (b) two gloo ranks on the card,
+    data=1,gauss=2 (mesh_rank), the library built here first. Returns the
+    launches of (a)'s and (b)'s mesh steps."""
+    import datetime
+    import multiprocessing as mp
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpugs_torch.parallel.mesh import make_mesh
+    from tpugs_torch.train.trainer import TrainConfig, make_train_step
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
+        rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
+        device_id=dev)
+    try:
+        mesh = make_mesh((1, 1), device=dev)
+        check(mesh.backend == "nccl", f"backend {mesh.backend}")
+        a = mesh_check(mesh, dev, errs, "mesh 1x1", kernel_rows=False)
+    finally:
+        dist.destroy_process_group()
+    cfg, whole, viewmat, intr, target = mesh_scene(dev)
+    step_fn = make_train_step(TrainConfig(densify_mode="none"), cfg, 1.0)
+    whole, _, _ = timed_steps(step_fn, whole, target, viewmat, intr, 0, 1)
+    _, single_ms, _ = timed_steps(step_fn, whole, target, viewmat, intr, 1,
+                                  MESH_STEPS)
+    del whole
+    print(f"mesh 1x1 (nccl, world 1): {float(np.median(a['ms'])):.3f} ms per "
+          f"step (steps {', '.join(f'{m:.2f}' for m in a['ms'])}; step 0 "
+          f"{a['ms_step0']:.1f}) against the single-device step "
+          f"{float(np.median(single_ms)):.3f} ms (steps "
+          f"{', '.join(f'{m:.2f}' for m in single_ms)}); image max abs err "
+          f"{a['img_err']:.3g}; gradients within the card rule on "
+          f"{a['grad_share']:.6f}; send capacity {a['send_capacity']} "
+          f"(max send {a['max_send']}, N/G {a['n_loc']}), exchange "
+          f"{a['a2a_bytes']} B per step, colour gather {a['color_bytes']} B; "
+          f"launches {a['launches']}", flush=True)
+
+    # The train CLI under torchrun, world size 1, NCCL.
+    ds = os.path.join(tmp, "gt_densify")
+    out_dir = os.path.join(tmp, "mesh_cli_out")
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "1", "-m", "tpugs_torch.apps.train", "-d", ds,
+           "-o", out_dir, "-i", str(MESH_CLI_STEPS), "--no-densify",
+           "--capacity", str(1 << 18), "--sh-degree", "3", "--log-every",
+           "1", "--save-every", "0", "--max-hits", str(TRAIN_MAX_HITS),
+           "--mesh", "data=1,gauss=1"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                         timeout=300,
+                         env=dict(os.environ, PYTHONPATH=root))
+    cli_s = time.perf_counter() - t0
+    for line in run.stdout.splitlines():
+        print(f"mesh cli: {line}", flush=True)
+    check(run.returncode == 0, f"torchrun train CLI returned "
+          f"{run.returncode}: {run.stderr[-2000:]}")
+    check("backend nccl" in run.stdout and "mesh: data=1 gauss=1" in
+          run.stdout, "the CLI did not run on an NCCL mesh")
+    hist = [json.loads(x) for x in open(os.path.join(out_dir,
+                                                     "history.jsonl"))]
+    check([r["step"] for r in hist] == list(range(MESH_CLI_STEPS))
+          and all(math.isfinite(r["loss"]) for r in hist),
+          f"mesh cli history {hist}")
+    print(f"mesh cli: torchrun, {MESH_CLI_STEPS} steps in {cli_s:.1f} s "
+          f"(process start, dataset, init included)", flush=True)
+
+    # (b) two ranks on the one card: the library is built (phase build).
+    ctx = mp.get_context("spawn")
+    out = os.path.join(tmp, "mesh_ranks")
+    os.makedirs(out)
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, os.path.join(out, "store"), out))
+             for r in range(2)]
+    t0 = time.perf_counter()
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(max(1.0, MESH_RANK_TIMEOUT_S - (time.perf_counter() - t0)))
+    hung = [r for r, proc in enumerate(procs) if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    for r in range(2):
+        err = os.path.join(out, f"rank{r}.err")
+        check(not os.path.exists(err), f"mesh rank {r} failed:\n"
+              + (open(err).read() if os.path.exists(err) else ""))
+    check(not hung, f"mesh ranks {hung} hung; killed")
+    check([proc.exitcode for proc in procs] == [0, 0],
+          f"mesh ranks exited {[proc.exitcode for proc in procs]}")
+    b = [json.load(open(os.path.join(out, f"rank{r}.json"))) for r in range(2)]
+    check(b[1]["row_offset"] > 0, "rank 1 composited at row offset 0")
+    for name, e in b[1]["errs"].items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    for r, res in enumerate(b):
+        print(f"mesh 1x2 rank {r} (gloo, one card): "
+              f"{float(np.median(res['ms'])):.3f} ms per step (steps "
+              f"{', '.join(f'{m:.2f}' for m in res['ms'])}; step 0 "
+              f"{res['ms_step0']:.1f}); row offset {res['row_offset']}; "
+              f"pairs {res['pairs']}; image max abs err {res['img_err']:.3g}; "
+              f"gradients within the card rule on {res['grad_share']:.6f}; "
+              f"send capacity {res['send_capacity']} (max send "
+              f"{res['max_send']}, N/G {res['n_loc']}), exchange "
+              f"{res['a2a_bytes']} B per step, colour gather "
+              f"{res['color_bytes']} B; launches {res['launches']}",
+              flush=True)
+    print(f"mesh: ranks (b) took {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return a["launches"], b[0]["launches"], b[1]["launches"]
+
+
 def bound(nbytes: int, ops: int):
     """(least ms for this work on the card, "bytes" or "operations")."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -2445,6 +2779,9 @@ def main() -> int:
                 tmp, dev, card)
         with Phase("tools", 300):
             phase_tools(tmp, dev)
+        with Phase("mesh", 600):
+            mesh_launches, rank0_launches, rank1_launches = phase_mesh(
+                tmp, dev, errs)
     torch.cuda.synchronize()
     cuda_lib.check_guards()  # no kernel found its inputs out of contract
     table = kernel_table(rows + large_rows + carry_rows, errs, {
@@ -2455,7 +2792,9 @@ def main() -> int:
         "train_cli": train_cli_launches, "render_cli": cli_launches,
         "adc_train_cli": adc_launches, "adc_eval": eval_launches,
         "mcmc_train_cli": mcmc_launches, "viewer_anchor": anchor_launches,
-        "viewer_drag": drag_launches})
+        "viewer_drag": drag_launches, "mesh_1x1_steps": mesh_launches,
+        "mesh_1x2_rank0_steps": rank0_launches,
+        "mesh_1x2_rank1_steps": rank1_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -299,5 +299,11 @@ def test_quality_cli_tiny_run(tmp_path, capsys):
     assert 0.0 < line["value"] < 100.0 and line["iterations"] == 10
     saved = json.load(open(tmp_path / "quality.json"))
     assert saved["num_images"] == 2 and saved["num_gaussians"] > 0
-    with pytest.raises(NotImplementedError, match="A12"):
-        quality_main(argv + ["--mesh", "data=2"])
+    # The same run on a 1x1 mesh: the mesh's step, no process group.
+    mesh_dir = tmp_path / "mesh"
+    argv[argv.index("-o") + 1] = str(mesh_dir)
+    assert quality_main(argv + ["--mesh", "data=1,gauss=1"]) == 0
+    mesh_line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert mesh_line["metric"] == "quality_psnr_synthetic_gt"
+    assert 0.0 < mesh_line["value"] < 100.0
+    assert json.load(open(mesh_dir / "quality.json"))["num_gaussians"] > 0

@@ -1,7 +1,8 @@
 """Guards of the port: it imports nothing of JAX or tpugs, its entry points
 refuse to fall back to the CPU, its kernel wrappers send CPU tensors to the
 plain versions and never swallow an error, its build raises with nvcc's
-message, and what is not yet ported raises instead of doing nothing."""
+message, what is not yet ported raises instead of doing nothing, and a
+mesh uses the backend of its device unless one is named."""
 import ast
 import ctypes
 import pathlib
@@ -375,15 +376,43 @@ def test_train_cli_without_cuda_needs_device_cpu(monkeypatch, tmp_path):
     assert (tmp_path / "out" / "ckpt_0000002.npz").exists()
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--no-densify", "--mesh", "data=2"], "mesh.*not yet ported.*A12"),
-])
-def test_train_modes_not_yet_ported_raise(tmp_path, extra, match):
+def test_train_mesh_larger_than_the_world_raises(tmp_path):
+    """--mesh without a launcher: a mesh larger than the one process raises
+    a ValueError that names torchrun, before anything is written."""
     from tpugs_torch.apps import train as train_app
 
     _, argv = _train_scene(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        train_app.main(argv + extra + ["--device", "cpu"])
+    with pytest.raises(ValueError, match="2\\*1 != 1 devices.*torchrun"):
+        train_app.main(argv + ["--no-densify", "--mesh", "data=2",
+                               "--device", "cpu"])
+    assert not (tmp_path / "out").exists()
+
+
+def test_mesh_on_cuda_never_drops_to_gloo_or_the_cpu(monkeypatch, tmp_path):
+    """A mesh on the card without one raises; in a gloo world a mesh on
+    the card raises unless the caller names gloo."""
+    import torch.distributed as dist
+
+    from tpugs_torch.parallel import dist_train
+    from tpugs_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_mesh((1, 1), device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dist_train.parse_mesh_spec("data=1,gauss=1")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="'gloo'.*'nccl'"):
+            make_mesh((1, 1), device="cuda:0")
+        mesh = make_mesh((1, 1), device="cuda:0", backend="gloo")
+        assert mesh.device == torch.device("cuda", 0)
+        assert mesh.backend == "gloo"
+        assert make_mesh((1, 1), device="cpu").backend == "gloo"
+    finally:
+        dist.destroy_process_group()
 
 
 def test_train_trace_dir_writes_a_trace(tmp_path):

@@ -6,8 +6,14 @@
 
 The same flags as the reference's CLI: ADC densification by default, MCMC
 with --mcmc, none with --no-densify; --trace-dir writes a torch.profiler
-Chrome trace of the training there. Not yet ported, and refused with the
-ROADMAP item: --mesh (A12).
+Chrome trace of the training there. --mesh data=D,gauss=G trains on D*G
+ranks, one per card, started by a launcher:
+
+  torchrun --nproc-per-node G -m tpugs_torch.apps.train ... --mesh data=D,gauss=G
+
+(NCCL on the card; with --device cpu, gloo ranks on the CPU). Across hosts,
+parallel/distributed.py's TPUGS_* variables. Without a launcher a mesh
+larger than 1x1 raises.
 """
 from __future__ import annotations
 
@@ -47,8 +53,8 @@ def build_parser():
                         "(ADCConfig.skip_final_reset = False)")
     p.add_argument("--resume", default=None, help="resume from a ckpt_*.npz")
     p.add_argument("--mesh", default="",
-                   help="device mesh spec for distributed training "
-                        "(not yet ported)")
+                   help="device mesh spec for distributed training, e.g. "
+                        "data=2,gauss=4 (one rank per card, under torchrun)")
     p.add_argument("--trace-dir", default=None,
                    help="write a torch.profiler Chrome trace of the "
                         "training into this directory")
@@ -104,19 +110,27 @@ def main(argv=None):
         print("--mcmc and --no-densify are mutually exclusive", file=sys.stderr)
         return 2
     from tpugs_torch.device import resolve_device
+    from tpugs_torch.parallel.distributed import (maybe_init_distributed,
+                                                  shutdown_distributed)
     from tpugs_torch.train.trainer import Trainer
 
     device = resolve_device(args.device)
-    cfg = config_from_args(args, _given_args(argv))
-    trainer = Trainer(args.data, cfg, resume_from=args.resume, device=device)
-    # history.jsonl is written by Trainer.train as it goes.
-    if args.trace_dir:
-        from tpugs_torch.utils.profiling import trace
+    started = maybe_init_distributed(device.type)
+    try:
+        cfg = config_from_args(args, _given_args(argv))
+        trainer = Trainer(args.data, cfg, resume_from=args.resume,
+                          device=device.type if started else device)
+        # history.jsonl is written by Trainer.train as it goes.
+        if args.trace_dir:
+            from tpugs_torch.utils.profiling import trace
 
-        with trace(args.trace_dir):
+            with trace(args.trace_dir):
+                trainer.train()
+        else:
             trainer.train()
-    else:
-        trainer.train()
+    finally:
+        if started:
+            shutdown_distributed()
     return 0
 
 

@@ -66,6 +66,23 @@ def train_state_from_numpy(flat: dict[str, np.ndarray], device="cuda"):
     )
 
 
+def train_state_to_numpy(state) -> dict[str, np.ndarray]:
+    """The reverse of train_state_from_numpy: a TrainState's fields as
+    numpy, named as in a checkpoint."""
+    n = lambda t: (t.detach().cpu().numpy() if isinstance(t, torch.Tensor)
+                   else np.asarray(t))
+    flat = {f"params/{k}": n(v) for k, v in state.params.items()}
+    flat["alive"] = n(state.alive)
+    flat.update({f"adam_m/{k}": n(v) for k, v in state.adam.m.items()})
+    flat.update({f"adam_v/{k}": n(v) for k, v in state.adam.v.items()})
+    flat["adam_count"] = n(state.adam.count)
+    flat["adc_grad_accum"] = n(state.adc.grad_accum)
+    flat["adc_grad_count"] = n(state.adc.grad_count)
+    flat["adc_max_radii"] = n(state.adc.max_radii)
+    flat["key"] = np.asarray(state.key, np.uint32)
+    return flat
+
+
 @dataclasses.dataclass
 class GaussianState:
     """Structure-of-arrays model padded to a capacity Nc: the five

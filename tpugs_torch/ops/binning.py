@@ -28,6 +28,14 @@ Two options of the reference's kernel path:
   attributes per slot and the sort's permutation carries them into attr_c
   [11, P] (x y ca cb cc op r g b gid valid, pack.pack_compact_attrs'
   rows), bit-identical inside every tile segment to the gathered table.
+
+Slice binning (the tile-sharded mesh path, parallel/tile_shard.py): with
+num_tile_rows > 0 only the tile rows [tile_row_lo, tile_row_lo +
+num_tile_rows) are binned and the result's tile ids are local to that
+slice (tile 0 = its first tile). The rects are clipped to the slice's rows;
+the expand kernel stays slice-agnostic and emits global tile ids, which one
+elementwise pass localises, invalid slots going to the local sentinel,
+before the sort. tile_row_lo is a Python int (one per rank).
 """
 from __future__ import annotations
 
@@ -205,19 +213,32 @@ def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
     )
 
 
+def _clip_rows(ty0, h_tiles, tile_row_lo: int, num_tile_rows: int):
+    """A rect's tile rows clipped to the slice [tile_row_lo, tile_row_lo +
+    num_tile_rows): (ty0, h_tiles), ty0 still global."""
+    ty1 = torch.clamp(ty0 + h_tiles, max=tile_row_lo + num_tile_rows)
+    ty0 = torch.clamp(ty0, min=tile_row_lo)
+    return ty0, torch.clamp(ty1 - ty0, min=0)
+
+
 def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
-                  tile_h: int, pair_capacity: int, presorted: bool = False
+                  tile_h: int, pair_capacity: int, presorted: bool = False,
+                  tile_row_lo: int = 0, num_tile_rows: int = 0
                   ) -> BinningResult:
     """The oracle: the reference's whole-capacity expansion (marker
     histogram + cumsum ownership over pair_capacity slots), then the same
-    sort as the kernel path."""
+    sort as the kernel path. num_tile_rows > 0: slice binning (see the
+    module's docstring)."""
     ntx = -(-img_w // tile_w)
     nty = -(-img_h // tile_h)
-    num_tiles = ntx * nty
+    if num_tile_rows <= 0:
+        tile_row_lo, num_tile_rows = 0, nty
+    num_tiles = ntx * num_tile_rows
     dev = proj.means2d.device
     r2_cull = cull_radius_sq(proj)
     tx0, ty0, w_tiles, h_tiles = tile_rects(proj, img_w, img_h, tile_w,
                                             tile_h, r2_cull)
+    ty0, h_tiles = _clip_rows(ty0, h_tiles, tile_row_lo, num_tile_rows)
     counts = (w_tiles * h_tiles).to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts
     n = counts.shape[0]
@@ -233,8 +254,8 @@ def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
     local = slots - offsets[g]
     w_g = torch.clamp(w_tiles.to(torch.int64)[g], min=1)
     tx = tx0.to(torch.int64)[g] + local % w_g
-    ty = ty0.to(torch.int64)[g] + local // w_g
-    tile_id = ty * ntx + tx
+    ty = ty0.to(torch.int64)[g] + local // w_g  # global tile row
+    tile_id = (ty - tile_row_lo) * ntx + tx
     gx, gy, r2_g = proj.means2d[g, 0], proj.means2d[g, 1], r2_cull[g]
     px0 = (tx * tile_w).to(torch.float32)
     py0 = (ty * tile_h).to(torch.float32)
@@ -256,25 +277,30 @@ class ExpandInputs:
     ftab: torch.Tensor  # f32 [4, N]
     p_out: int  # min(total, pair_capacity)
     total: int  # true pair count
-    num_tiles: int
+    num_tiles: int  # the kernel's sentinel: the whole grid's tile count
     ntx: int
     qbits: int  # depth-key bits of the qkey sort, 0 otherwise
 
 
 def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
                   tile_w: int, tile_h: int, pair_capacity: int,
-                  presorted: bool = False, quant_key_bits: int = 0
+                  presorted: bool = False, quant_key_bits: int = 0,
+                  tile_row_lo: int = 0, num_tile_rows: int = 0
                   ) -> ExpandInputs:
     """Per-gaussian rects, counts, offsets and cull radii for the expand
     kernel. quant_key_bits > 0 (not presorted) replaces the depth key with
     its linear bin over the visible depth range, as the reference's qkey
-    path does, capped at 22 bits and at what the tile ids leave of 32."""
+    path does, capped at 22 bits and at what the tile ids leave of 32.
+    num_tile_rows > 0 clips the rects to that slice of tile rows; the
+    kernel's tile ids stay global."""
     ntx = -(-img_w // tile_w)
     nty = -(-img_h // tile_h)
     num_tiles = ntx * nty
     r2_cull = cull_radius_sq(proj)
     tx0, ty0, w_tiles, h_tiles = tile_rects(proj, img_w, img_h, tile_w,
                                             tile_h, r2_cull)
+    if num_tile_rows > 0:
+        ty0, h_tiles = _clip_rows(ty0, h_tiles, tile_row_lo, num_tile_rows)
     counts = w_tiles * h_tiles
     offsets64 = torch.cumsum(counts, 0, dtype=torch.int64) - counts
     total = int(offsets64[-1] + counts[-1]) if counts.shape[0] else 0
@@ -282,7 +308,8 @@ def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
         raise ValueError(f"{total} pairs: past the int32 slot range")
     qbits = 0
     if quant_key_bits > 0 and not presorted:
-        qbits = max(min(quant_key_bits, 32 - num_tiles.bit_length(), 22), 0)
+        local_tiles = ntx * num_tile_rows if num_tile_rows > 0 else num_tiles
+        qbits = max(min(quant_key_bits, 32 - local_tiles.bit_length(), 22), 0)
     depth_row = proj.depths
     if qbits > 0:
         nbins = 1 << qbits
@@ -318,14 +345,17 @@ def bin_gaussians_expand_kernel(proj: ProjectionOutput, img_w: int,
                                 pair_capacity: int, presorted: bool = False,
                                 quant_key_bits: int = 0,
                                 reduce_meta: bool = False,
-                                carry_attrs: bool = False) -> BinningResult:
+                                carry_attrs: bool = False,
+                                tile_row_lo: int = 0,
+                                num_tile_rows: int = 0) -> BinningResult:
     """bin_gaussians with the expansion done by the expand kernel. The
     sorted segments are bit-identical to bin_gaussians' (presorted or 2-key
     sort); with quant_key_bits > 0 they hold the same pairs per tile in
-    quantized-depth order, same-bin order arbitrary. reduce_meta and
-    carry_attrs as in the module's docstring."""
+    quantized-depth order, same-bin order arbitrary. reduce_meta,
+    carry_attrs and slice binning (num_tile_rows > 0) as in the module's
+    docstring."""
     ex = expand_inputs(proj, img_w, img_h, tile_w, tile_h, pair_capacity,
-                       presorted, quant_key_bits)
+                       presorted, quant_key_bits, tile_row_lo, num_tile_rows)
     atab = None
     if carry_attrs:
         atab = pack.gaussian_attrs(proj.means2d, proj.conic, proj.rgb,
@@ -333,7 +363,12 @@ def bin_gaussians_expand_kernel(proj: ProjectionOutput, img_w: int,
     tile, depth, gid, *attrs = EX.expand_pairs(
         ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile_w, tile_h,
         atab)
-    b = sort_pairs(tile, depth, gid, ex.num_tiles, proj.depths.shape[0],
+    num_tiles = ex.num_tiles
+    if num_tile_rows > 0:
+        num_tiles = ex.ntx * num_tile_rows
+        tile = torch.where(tile < ex.num_tiles, tile - tile_row_lo * ex.ntx,
+                           torch.full_like(tile, num_tiles))
+    b = sort_pairs(tile, depth, gid, num_tiles, proj.depths.shape[0],
                    ex.total, pair_capacity, presorted=presorted,
                    qbits=ex.qbits, reduce_meta=reduce_meta,
                    attrs=attrs[0] if attrs else None)

@@ -1,5 +1,5 @@
-"""Training loop on one device, as in tpugs/train/trainer.py without a
-mesh.
+"""Training loop, as in tpugs/train/trainer.py: on one device, or on each
+rank of a ("data", "gauss") mesh (TrainConfig.mesh, parallel/).
 
 Each step renders one view with gradients (the compositor's backward kernel
 and the sorted segment reduction), takes the L1 + SSIM loss (plus MCMC's
@@ -17,7 +17,15 @@ do. Their random draws come from torch.Generators seeded from the state's
 key (seed, steps taken) and a stream tag, so a resumed run draws what an
 uninterrupted one does.
 
-Not yet ported: the device mesh (ROADMAP A12) raises.
+Under a mesh every rank runs this loop with the same schedule: it holds
+its gauss shard of the state (the initial slots interleaved over the
+shards, so each starts with about N0/G alive gaussians and as many free
+slots) and its data row's views, and steps with
+parallel/dist_train.make_dist_train_step. All ranks draw the same (K, D)
+local view indices per block; a rank takes its row's column. Checkpoints
+and evaluation gather the shards (every rank takes part; rank 0 writes and
+logs); a checkpoint is the whole state in its slot layout, so it loads on
+one device or on a mesh of any G that divides its capacity.
 """
 from __future__ import annotations
 
@@ -133,6 +141,11 @@ class StepStats:
     pair_overflow: torch.Tensor
     max_tile_hits: torch.Tensor
     hit_overflow: torch.Tensor
+    # Under a mesh (None on one device): the worst rank's pairs, and the
+    # exchange's overflow and worst send count.
+    max_local_pairs: torch.Tensor | None = None
+    send_overflow: torch.Tensor | None = None
+    max_send_count: torch.Tensor | None = None
 
 
 def initial_key(seed: int) -> np.ndarray:
@@ -151,13 +164,17 @@ def _background(key: np.ndarray, random: bool, device) -> torch.Tensor:
 NOISE_STREAM, DENSIFY_STREAM, RELOCATE_STREAM = 1, 2, 3
 
 
-def event_generator(key: np.ndarray, stream: int,
-                    device="cuda") -> torch.Generator:
+def event_generator(key: np.ndarray, stream: int, device="cuda",
+                    shard: int | None = None) -> torch.Generator:
     """A torch.Generator on `device` ('cuda' unless 'cpu' is asked for)
-    seeded from the key (seed, steps taken) and a stream tag."""
+    seeded from the key (seed, steps taken) and a stream tag; under a mesh
+    also the gauss shard's index, so shards draw apart and data rows
+    alike."""
     device = resolve_device(device)
-    seed = np.random.SeedSequence(
-        [int(key[0]), int(key[1]), stream]).generate_state(1, np.uint64)[0]
+    entropy = [int(key[0]), int(key[1]), stream]
+    if shard is not None:
+        entropy.append(int(shard))
+    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
@@ -294,23 +311,41 @@ def eval_views(dataset: Dataset, device="cuda") -> list:
     return views
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not yet ported to tpugs_torch (ROADMAP {item}); train on "
-        f"one device")
+def _gaussian_state(state: TrainState) -> GaussianState:
+    p = state.params
+    return GaussianState(
+        means=p["means"], quats=p["quats"], log_scales=p["log_scales"],
+        opacity_logits=p["opacity_logits"], sh=p["sh"], alive=state.alive)
+
+
+def interleave_slots(x: torch.Tensor, g: int) -> torch.Tensor:
+    """Slot i -> shard i % g, local slot i // g (a transpose), so each of
+    the g contiguous shards gets every g-th slot."""
+    n = x.shape[0]
+    return x.reshape((n // g, g) + tuple(x.shape[1:])).transpose(0, 1) \
+        .reshape(x.shape).contiguous()
 
 
 class Trainer:
     """Dataset, state, the train step, the event schedule, logs and
-    checkpoints, on one device ('cuda' unless 'cpu' is asked for)."""
+    checkpoints, on one device ('cuda' unless 'cpu' is asked for) or, with
+    config.mesh, on this rank of the mesh (its card: cuda:LOCAL_RANK)."""
 
     def __init__(self, data_dir: str, config: TrainConfig = TrainConfig(),
                  log_fn=print, resume_from: str | None = None,
                  device="cuda"):
         if config.densify_mode not in ("adc", "mcmc", "none"):
             raise ValueError(f"unknown densify_mode {config.densify_mode!r}")
+        self.mesh = None
         if config.mesh:
-            raise _not_ported(f"mesh={config.mesh!r}", "A12")
+            from tpugs_torch.parallel.dist_train import parse_mesh_spec
+
+            self.mesh = parse_mesh_spec(config.mesh, device=device)
+            device = self.mesh.device
+        # Rank 0 writes and logs; the other ranks run the same program.
+        self._primary = self.mesh is None or self.mesh.primary
+        if not self._primary:
+            log_fn = lambda *a, **k: None  # noqa: E731
         # MCMC's noise must follow the optimizer's position LR schedule.
         if config.mcmc.position_lr != config.adam.position_lr:
             log_fn(
@@ -330,13 +365,27 @@ class Trainer:
             raise ValueError("no training cameras")
         self.scene_extent = self.dataset.scene_bounds.extent
         cam0 = self.dataset.train_cameras[0]
+        if self.mesh is not None:
+            self.log(f"mesh: data={self.mesh.data} gauss={self.mesh.gauss} "
+                     f"({self.mesh.size} ranks, backend "
+                     f"{self.mesh.backend or 'none'}, {self.device})")
 
         n_points = self.dataset.points_xyz.shape[0]
         capacity = max(config.capacity,
                        1 << int(np.ceil(np.log2(max(n_points, 1)))))
+        g = self.mesh.gauss if self.mesh is not None else 1
+        capacity = -(-capacity // g) * g  # divisible by the gauss axis
         gs = init_from_sfm(self.dataset.points_xyz, self.dataset.points_rgb,
                            capacity=capacity, max_sh_degree=config.sh_degree,
                            device=self.device)
+        if g > 1:
+            # Interleave the initial slots over the shards: init packs the
+            # N0 alive gaussians into slots [0, N0), so contiguous shards
+            # would leave shard 0 without free slots (no clone or split:
+            # ADC's free lists are shard-local) and the last shards empty.
+            gs = GaussianState(**{f: interleave_slots(getattr(gs, f), g)
+                                  for f in ("means", "quats", "log_scales",
+                                            "opacity_logits", "sh", "alive")})
 
         pair_capacity = config.pair_capacity
         if config.auto_pair_capacity:
@@ -369,10 +418,20 @@ class Trainer:
             self.state, self.start_step = load_train_checkpoint(
                 resume_from, self.device)
             self.log(f"resumed from {resume_from} at step {self.start_step}")
-        self._train_step = make_train_step(self.cfg, self.raster,
-                                           self.scene_extent)
-        self._densify = make_densify_step(self.cfg, self.scene_extent)
-        self._relocate = make_relocate_step(self.cfg, self.scene_extent)
+        if self.mesh is None:
+            self._densify = make_densify_step(self.cfg, self.scene_extent)
+            self._relocate = make_relocate_step(self.cfg, self.scene_extent)
+        else:
+            from tpugs_torch.parallel import dist_train as DT
+
+            self.state = DT.shard_train_state(self.mesh, self.state)
+            self._densify = DT.make_dist_densify_step(self.cfg, self.mesh,
+                                                      self.scene_extent)
+            self._relocate = DT.make_dist_relocate_step(self.cfg, self.mesh,
+                                                        self.scene_extent)
+            if self.cfg.dist_send_capacity < 0:
+                self._auto_send_capacity()
+        self._build_train_step()
         self._eval_raster = None  # the evaluation's, grown on its own
 
         sizes = {(c.height, c.width) for c in self.dataset.train_cameras}
@@ -380,19 +439,98 @@ class Trainer:
             raise ValueError(f"mixed camera resolutions unsupported: {sizes}")
         self._images = None  # loaded at the first train()
         cams = self.dataset.train_cameras
+        # The views this rank trains on: all of them, or under a mesh its
+        # data row's block of views_per_row (wrapping around), drawn by a
+        # local index.
+        self._view_ids = np.arange(len(cams))
+        self._num_views = len(cams)  # the range of a drawn view index
+        self._draw_shape = ()
+        if self.mesh is not None:
+            d = self.mesh.data
+            vpr = -(-len(cams) // d)
+            i = self.mesh.data_index
+            self._view_ids = np.arange(i * vpr, (i + 1) * vpr) % len(cams)
+            self._num_views, self._draw_shape = vpr, (d,)
         self._viewmats = torch.as_tensor(
-            np.stack([c.world_to_camera() for c in cams]), dtype=torch.float32,
-            device=self.device)
+            np.stack([cams[i].world_to_camera() for i in self._view_ids]),
+            dtype=torch.float32, device=self.device)
         self._intrinsics = torch.as_tensor(
-            np.stack([c.intrinsics_array() for c in cams]), device=self.device)
+            np.stack([cams[i].intrinsics_array() for i in self._view_ids]),
+            device=self.device)
         self._rng = np.random.default_rng(config.seed)
         # A resumed run draws the views an uninterrupted one would draw from
         # here: replay the draws of the blocks before start_step.
         step, k_max = 0, self._effective_steps_per_call()
         while step < self.start_step:
             k_blk = _block_length(step, k_max, self.start_step)
-            self._rng.integers(0, self.dataset.num_train(), size=k_blk)
+            self._draw_views(k_blk)
             step += k_blk
+
+    def _draw_views(self, k_blk: int) -> np.ndarray:
+        """The block's view indices into this rank's views: one per step,
+        or under a mesh one per (step, data row), this rank's column."""
+        vi = self._rng.integers(0, self._num_views,
+                                size=(k_blk,) + self._draw_shape)
+        return vi if self.mesh is None else vi[:, self.mesh.data_index]
+
+    def _build_train_step(self):
+        """The train step for the current raster config (again after the
+        capacities grow)."""
+        if self.mesh is None:
+            self._train_step = make_train_step(self.cfg, self.raster,
+                                               self.scene_extent)
+        else:
+            from tpugs_torch.parallel.dist_train import make_dist_train_step
+
+            self._train_step = make_dist_train_step(
+                self.cfg, self.raster, self.mesh, self.scene_extent)
+
+    def _auto_send_capacity(self):
+        """The exchange's slots per (source, destination): 1.3x the worst
+        send count over up to 4 sample views, in multiples of 128, at most
+        N/G; a later send overflow grows it (_handle_overflow)."""
+        from tpugs_torch.parallel.dist_train import (auto_send_capacity,
+                                                     measure_max_send_count)
+
+        cams = self.dataset.train_cameras
+        sample = cams[:: max(1, len(cams) // 4)][:4]
+        worst = measure_max_send_count(
+            self.mesh, self.raster, self.state.params, self.state.alive,
+            [np.asarray(c.world_to_camera(), np.float32) for c in sample],
+            [np.asarray(c.intrinsics_array()) for c in sample])
+        n_loc = self.state.alive.shape[0]
+        cap = auto_send_capacity(worst, n_loc)
+        self.cfg = dataclasses.replace(self.cfg, dist_send_capacity=cap)
+        self.log(
+            f"auto exchange capacity: max initial send count {worst} -> "
+            f"{cap} slots/(src,dst) (x1.3 headroom; safe bound {n_loc})")
+
+    def _effective_send_capacity(self) -> int:
+        """The exchange slots the mesh step uses (0 on one device)."""
+        if self.mesh is None:
+            return 0
+        if self.cfg.dist_send_capacity > 0:
+            return self.cfg.dist_send_capacity
+        return self.state.alive.shape[0]
+
+    def _any_rank(self, flag: bool) -> bool:
+        """flag on any rank of the mesh (every rank then takes the same
+        branch, as the collectives after it need)."""
+        if self.mesh is None:
+            return flag
+        from tpugs_torch.parallel import comm
+        from tpugs_torch.parallel.mesh import BOTH
+
+        return bool(comm.all_reduce(torch.tensor(flag, device=self.device),
+                                    self.mesh, BOTH, "max"))
+
+    def _n_alive(self) -> int:
+        n = torch.sum(self.state.alive.to(torch.int64))
+        if self.mesh is not None:
+            from tpugs_torch.parallel import comm
+
+            n = comm.all_reduce(n, self.mesh, "gauss")
+        return int(n)
 
     def _handle_overflow(self, stats: StepStats, step: int):
         """Pairs or tile hits past the capacities were dropped in the last
@@ -402,8 +540,12 @@ class Trainer:
             f"[{step}] OVERFLOW: pairs {int(stats.num_pairs)}"
             f"/{self.raster.pair_capacity}, busiest tile "
             f"{int(stats.max_tile_hits)}/{self.raster.max_hits_per_tile}"
-            " (work dropped this block)"
         )
+        if self.mesh is not None:
+            msg += (f", worst device pairs {int(stats.max_local_pairs)}, "
+                    f"exchange sends {int(stats.max_send_count)}"
+                    f"/{self._effective_send_capacity()}")
+        msg += " (work dropped this block)"
         if cfg.on_overflow == "warn":
             self.log(msg)
             return
@@ -413,30 +555,53 @@ class Trainer:
             raise RuntimeError(msg + " — on_overflow='error', checkpoint saved")
         new_pairs = self.raster.pair_capacity
         new_hits = self.raster.max_hits_per_tile
+        new_send = cfg.dist_send_capacity
         if bool(stats.pair_overflow):
-            target = int(1.3 * int(stats.num_pairs))
+            if self.mesh is None:
+                target = int(1.3 * int(stats.num_pairs))
+            else:
+                # The overflow is against a rank's own list,
+                # ceil(pair_capacity / G) x headroom: size the global
+                # capacity so that it covers the worst slice.
+                from tpugs_torch.parallel.tile_shard import (
+                    PAIR_IMBALANCE_HEADROOM)
+
+                target_local = 1.3 * int(stats.max_local_pairs)
+                target = int(np.ceil(target_local * self.mesh.gauss
+                                     / PAIR_IMBALANCE_HEADROOM))
             new_pairs = max(new_pairs, -(-target // 512) * 512)
         if bool(stats.hit_overflow):
             target = int(1.2 * int(stats.max_tile_hits))
             new_hits = max(new_hits, -(-target // 128) * 128)
-        if (new_pairs, new_hits) == (self.raster.pair_capacity,
-                                     self.raster.max_hits_per_tile):
+        if (stats.send_overflow is not None and bool(stats.send_overflow)
+                and cfg.dist_send_capacity > 0):
+            # A tuned exchange capacity dropped records: grow it.
+            target = int(1.3 * int(stats.max_send_count))
+            new_send = max(new_send, -(-target // 128) * 128)
+        if (new_pairs, new_hits, new_send) == (
+                self.raster.pair_capacity, self.raster.max_hits_per_tile,
+                cfg.dist_send_capacity):
             self.log(msg + " — capacities unchanged, no growth computed")
             return
         self.log(
             msg + f" -> growing pair_capacity "
             f"{self.raster.pair_capacity}->{new_pairs}, max_hits "
             f"{self.raster.max_hits_per_tile}->{new_hits}"
+            + (f", send_capacity {cfg.dist_send_capacity}->{new_send}"
+               if new_send != cfg.dist_send_capacity else "")
         )
         self.raster = dataclasses.replace(
             self.raster, pair_capacity=new_pairs, max_hits_per_tile=new_hits)
-        self._train_step = make_train_step(self.cfg, self.raster,
-                                           self.scene_extent)
+        if new_send != cfg.dist_send_capacity:
+            self.cfg = dataclasses.replace(cfg, dist_send_capacity=new_send)
+        self._build_train_step()
 
     def _image_bank(self) -> torch.Tensor:
+        """This rank's views' images on its device (each rank loads only
+        its data row's)."""
         if self._images is None:
-            imgs = np.stack([self.dataset.load_train_image(i)
-                             for i in range(self.dataset.num_train())])
+            imgs = np.stack([self.dataset.load_train_image(int(i))
+                             for i in self._view_ids])
             self._images = torch.from_numpy(imgs).to(self.device)
         return self._images
 
@@ -450,13 +615,14 @@ class Trainer:
         window_start = t0
         history = []
         hist_path = os.path.join(cfg.output_dir, "history.jsonl")
-        hist_f = open(hist_path, "a" if self.start_step > 0 else "w")
+        hist_f = (open(hist_path, "a" if self.start_step > 0 else "w")
+                  if self._primary else open(os.devnull, "w"))
         k_max = self._effective_steps_per_call()
 
         step = self.start_step
         while step < iters:
             k_blk = _block_length(step, k_max, iters)
-            vi = self._rng.integers(0, self.dataset.num_train(), size=k_blk)
+            vi = self._draw_views(k_blk)
             sh_deg = active_sh_degree_for_step(step, cfg.sh_degree)
             losses = []
             for j, v in enumerate(vi):
@@ -467,7 +633,9 @@ class Trainer:
                 losses.append(stats.loss)
             prev, step = step, step + k_blk
 
-            overflow = bool(stats.pair_overflow) or bool(stats.hit_overflow)
+            overflow = (bool(stats.pair_overflow) or bool(stats.hit_overflow)
+                        or bool(stats.send_overflow is not None
+                                and stats.send_overflow))
             # The read above waited for the block's last kernel: a contract
             # violation found on the card raises before any log or save.
             cuda_lib.check_guards()
@@ -505,7 +673,7 @@ class Trainer:
                     its = (cfg.log_every / max(now - window_start, 1e-9)
                            if s else 0.0)
                     window_start = now
-                    n_alive = int(torch.sum(self.state.alive))
+                    n_alive = self._n_alive()
                     self.log(
                         f"[{s}] loss={loss:.4f} l1={float(stats.l1):.4f} "
                         f"N={n_alive} sh={sh_deg} pairs={int(stats.num_pairs)} "
@@ -521,7 +689,7 @@ class Trainer:
                 if (self.watchdog is not None and cfg.log_every > 0
                         and s % cfg.log_every == 0):
                     self.watchdog.check()
-                    if self.watchdog.should_abort():
+                    if self._any_rank(self.watchdog.should_abort()):
                         self.log(
                             f"[{s}] HBM over limit "
                             f"{self.watchdog.max_critical_streak} consecutive "
@@ -657,7 +825,8 @@ class Trainer:
         overflow grows the eval capacities and renders again (or warns, or
         raises, by on_overflow)."""
         deg = self.cfg.sh_degree if sh_degree is None else sh_degree
-        p, alive = self.state.params, self.state.alive
+        state = self._whole_state()
+        p, alive = state.params, state.alive
         bg = torch.zeros((3,), device=self.device)
 
         def render_checked(name, args):
@@ -688,18 +857,31 @@ class Trainer:
         cuda_lib.check_guards()
         return res
 
+    def _whole_state(self) -> TrainState:
+        """The whole train state on this rank's device: under a mesh its
+        shards gathered over the gauss group (every rank calls this
+        together)."""
+        if self.mesh is None or self.mesh.gauss == 1:
+            return self.state
+        from tpugs_torch.core.gaussians import train_state_from_numpy
+        from tpugs_torch.parallel.dist_train import gathered_numpy_state
+
+        return train_state_from_numpy(
+            gathered_numpy_state(self.mesh, self.state), self.device)
+
     def gaussian_state(self) -> GaussianState:
-        p = self.state.params
-        return GaussianState(
-            means=p["means"], quats=p["quats"], log_scales=p["log_scales"],
-            opacity_logits=p["opacity_logits"], sh=p["sh"],
-            alive=self.state.alive)
+        """The whole model (under a mesh: gathered, a collective)."""
+        return _gaussian_state(self._whole_state())
 
     def save_checkpoint(self, step: int, full: bool = True) -> str:
         """The live gaussians as a PLY and, with `full`, the whole train
-        state as ckpt_<step>.npz (resumable)."""
+        state as ckpt_<step>.npz (resumable). Under a mesh the shards are
+        gathered on every rank and rank 0 writes."""
         path = os.path.join(self.cfg.output_dir, f"model_{step:07d}.ply")
-        arrays = self.gaussian_state().compact_arrays()
+        state = self._whole_state()
+        if not self._primary:
+            return path
+        arrays = _gaussian_state(state).compact_arrays()
         write_gaussian_ply(
             path, arrays["means"], arrays["sh"], arrays["opacity_logits"],
             arrays["log_scales"], arrays["quats"])
@@ -708,6 +890,6 @@ class Trainer:
 
             save_train_checkpoint(
                 os.path.join(self.cfg.output_dir, f"ckpt_{step:07d}.npz"),
-                self.state, step)
+                state, step)
         self.log(f"[{step}] checkpoint -> {path}")
         return path
