@@ -56,9 +56,15 @@ ADC = dict(densify_from=10, densify_every=10, densify_until=40,
            opacity_reset_every=20)
 CLONE = dict(ADC, percent_dense=100.0)  # every candidate clones: no draws
 MCMC = dict(relocate_from=10, relocate_every=10, noise_lr=0.0)
+# Noise at its default noise_lr; the threshold leaves dead gaussians at
+# both events, so both relocate.
+MCMC_NOISE = dict(relocate_from=10, relocate_every=10,
+                  dead_opacity_threshold=0.1)
 RUNS = [
     ("clone", dict(BASE, adc=CLONE), 30, None),
     ("mcmc", dict(BASE, densify_mode="mcmc", mcmc=MCMC), 12, None),
+    ("mcmc_noise", dict(BASE, densify_mode="mcmc", mcmc=MCMC_NOISE), 21,
+     None),
     ("straight", dict(BASE, log_every=5, save_every=10, eval_every=20,
                       adc=ADC, eval=True), 30, None),
     ("first", dict(BASE, log_every=5, save_every=10, eval_every=20,
@@ -87,9 +93,9 @@ def world(scene, tmp_path_factory):
         **{k: v for k, v in BASE.items() if k != "mesh"}),
         log_fn=lambda *_: None, device="cpu")
     single.train(20)
-    (res, *_) = run_world(4, "tests.torch_dist_cases:trainer_world", out,
-                          scene=scene, out=out, runs=RUNS)
-    return res, out
+    ranks = run_world(4, "tests.torch_dist_cases:trainer_world", out,
+                      scene=scene, out=out, runs=RUNS)
+    return ranks[0], out, ranks
 
 
 @pytest.fixture
@@ -193,11 +199,35 @@ def test_mcmc_run_matches_jax_to_the_first_relocation(world, scene, tmp_path,
                                rtol=LOSS_RTOL)
 
 
+@pytest.mark.parametrize("run", ["straight", "mcmc_noise"])
+def test_data_rows_hold_identical_states(world, run):
+    """The two data rows' replicas of each shard stay bit-identical: the
+    per-shard draws (ADC's split noise; MCMC's relocation, growth and
+    per-step noise) fold in the gauss index and never the data row. Each
+    rank returns its data row's gathered state, so all four agree."""
+    ranks = world[2]
+    ev = _events(ranks[0][run]["logs"])
+    if run == "straight":
+        assert any("split" in ln and "+0 split" not in ln for ln in ev)
+    else:
+        assert len(ev) == 2
+        assert all("relocate: 0 of" not in ln for ln in ev), ev
+    final = ranks[0][run]["final"]
+    for r in (1, 2, 3):
+        assert ranks[r][run]["losses"] == ranks[0][run]["losses"]
+        for k, v in final.items():
+            np.testing.assert_array_equal(ranks[r][run]["final"][k], v,
+                                          err_msg=f"rank {r}: {k}")
+
+
 def test_eval_and_checkpoint_under_the_mesh(world):
-    res, out = world
+    res, out, _ = world
     straight = res["straight"]
     assert any("eval: PSNR" in ln for ln in straight["logs"])
     assert np.isfinite(straight["psnr"]) and straight["psnr"] > 5.0
+    for k, v in straight["model"].items():  # gathered on the device
+        name = "alive" if k == "alive" else f"params/{k}"
+        np.testing.assert_array_equal(v, straight["final"][name], err_msg=k)
     for step in (10, 20, 30):
         assert os.path.exists(os.path.join(out, "straight",
                                            f"ckpt_{step:07d}.npz"))
@@ -219,7 +249,7 @@ def test_resumed_mesh_run_is_the_straight_run(world):
 
 
 def test_mesh_checkpoint_loads_on_one_device_and_back(world, scene):
-    res, out = world
+    res, out, _ = world
     state, step = load_train_checkpoint(
         os.path.join(out, "straight", "ckpt_0000030.npz"), "cpu")
     assert step == 30

@@ -172,9 +172,10 @@ def _mcmc(mesh, params, alive, draws, extent, cfg):
 def trainer_world(rank, world, scene, out, runs):
     """Trainers on this rank of the world's mesh, one per run spec (name,
     TrainConfig kwargs, iterations, resume_from or None). Returns, per
-    run, rank 0's log lines, history losses, send capacity, the gathered
-    state after init and after training, and evaluate()'s PSNR when
-    asked for ("eval" in the spec's kwargs)."""
+    run, the rank's log lines, history losses, send capacity, its data
+    row's gathered state after init and after training, a few fields of
+    gaussian_state() after training, and evaluate()'s PSNR when asked for
+    ("eval" in the spec's kwargs)."""
     import os
 
     from tpugs_torch.optim.densify_adc import ADCConfig
@@ -203,10 +204,13 @@ def trainer_world(rank, world, scene, out, runs):
                    max_hits=tr.raster.max_hits_per_tile,
                    start_step=tr.start_step, init=init,
                    final=gathered_numpy_state(tr.mesh, tr.state))
+        model = tr.gaussian_state()
+        res["model"] = {k: getattr(model, k).numpy() for k in
+                        ("means", "sh", "alive")}
         if do_eval:
             res["psnr"] = tr.evaluate().mean_psnr
         results[name] = res
-    return results if rank == 0 else None
+    return results
 
 
 def cli_world(rank, world, scene, out):

@@ -25,7 +25,10 @@ views of a step, and every data row holds the same ADC state.
 ADC's densify event runs shard-local: each shard clones, splits and
 prunes within its own slots, so the initial slots are interleaved across
 shards (the Trainer). MCMC's relocation and growth sample globally
-(dist_mcmc.py). Event statistics are summed over the gauss group.
+(dist_mcmc.py). Event statistics are summed over the gauss group. The
+opacity reset touches each slot alone, so the Trainer's
+reset_opacity_step serves a shard as it is (tpugs'
+make_dist_reset_opacity_step wraps the same function in a shard_map).
 """
 from __future__ import annotations
 
@@ -127,24 +130,51 @@ def shard_numpy_state(flat: dict, mesh: Mesh) -> dict:
     return out
 
 
+def _gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """x's rows gathered over the gauss group, on x's device (a bool as
+    uint8)."""
+    if x.dtype == torch.bool:
+        return comm.all_gather(x.to(torch.uint8), mesh, "gauss").bool()
+    return comm.all_gather(x, mesh, "gauss")
+
+
+def gathered_params(mesh: Mesh, params: dict, alive):
+    """The whole model on this rank's device: (params, alive) gathered over
+    the gauss group (a collective: all ranks call it together). What
+    evaluation and a GaussianState need, and no more: at SH 3, 59 floats
+    and a byte per slot on each card, no host copy."""
+    return ({k: _gather_rows(v, mesh) for k, v in params.items()},
+            _gather_rows(alive, mesh))
+
+
+def gathered_train_state(mesh: Mesh, state):
+    """The whole TrainState on this rank's device, every sharded field
+    gathered over the gauss group (a collective). At SH 3 about 180
+    floats a slot (params, both Adam moments, the ADC accumulators): 12
+    GB on each card at 2^24 slots."""
+    from tpugs_torch.optim.adam import AdamState
+    from tpugs_torch.train.trainer import TrainState
+
+    g = lambda x: _gather_rows(x, mesh)
+    params, alive = gathered_params(mesh, state.params, state.alive)
+    adam, adc = state.adam, state.adc
+    return TrainState(
+        params=params, alive=alive,
+        adam=AdamState(m={k: g(v) for k, v in adam.m.items()},
+                       v={k: g(v) for k, v in adam.v.items()},
+                       count=adam.count),
+        adc=ADCState(grad_accum=g(adc.grad_accum),
+                     grad_count=g(adc.grad_count),
+                     max_radii=g(adc.max_radii)),
+        key=state.key)
+
+
 def gathered_numpy_state(mesh: Mesh, state) -> dict:
-    """The reverse: the whole state, its shards gathered over the gauss
-    group, as numpy in the checkpoint's names, on every rank of the data
-    row (a collective: all ranks call it together)."""
+    """The whole state as numpy in the checkpoint's names, on every rank
+    of the data row (a collective)."""
     from tpugs_torch.core.gaussians import train_state_to_numpy
 
-    flat = train_state_to_numpy(state)
-    out = {}
-    for k, v in flat.items():
-        if _is_sharded(k) and mesh.gauss > 1:
-            t = torch.from_numpy(v).to(mesh.device)
-            if t.dtype == torch.bool:
-                t = comm.all_gather(t.to(torch.uint8), mesh, "gauss").bool()
-            else:
-                t = comm.all_gather(t, mesh, "gauss")
-            v = t.cpu().numpy()
-        out[k] = v
-    return out
+    return train_state_to_numpy(gathered_train_state(mesh, state))
 
 
 def shard_train_state(mesh: Mesh, state):
@@ -223,18 +253,15 @@ def _step_stats(diag: dict, mesh: Mesh, raster: RasterConfig, loss, l1):
 
 
 def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
-                         scene_extent: float,
-                         send_capacity: int | None = None):
+                         scene_extent: float):
     """One distributed training step on this rank, trainer.make_train_step's
     contract on a shard: step(state, image, viewmat, intrinsics, step,
     sh_degree) -> (state, StepStats), the view being this rank's data
-    row's. send_capacity: exchange slots per (source, destination);
+    row's. The exchange's slots per (source, destination):
     cfg.dist_send_capacity when it is set, else the safe N/G."""
     from tpugs_torch.train.trainer import (NOISE_STREAM, TrainState,
                                            _background, event_generator)
 
-    if send_capacity is None and cfg.dist_send_capacity > 0:
-        send_capacity = cfg.dist_send_capacity
     g, d = mesh.gauss, mesh.data
     local_cfg = local_raster_config(
         raster, g, default_local_pair_capacity(raster.pair_capacity, g))
@@ -248,7 +275,7 @@ def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
         dev = image.device
         background = _background(state.key, cfg.random_background, dev)
         n_loc = state.alive.shape[0]
-        cap = send_capacity if send_capacity is not None else n_loc
+        cap = cfg.dist_send_capacity if cfg.dist_send_capacity > 0 else n_loc
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         proj = project_gaussians(
@@ -372,10 +399,3 @@ def make_dist_relocate_step(cfg, mesh: Mesh, scene_extent: float):
                           adc=state.adc, key=state.key), stats
 
     return reloc
-
-
-def make_dist_reset_opacity_step(mesh: Mesh):
-    """The opacity reset is shard-local: trainer.reset_opacity_step."""
-    from tpugs_torch.train.trainer import reset_opacity_step
-
-    return reset_opacity_step

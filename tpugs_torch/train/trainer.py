@@ -311,13 +311,6 @@ def eval_views(dataset: Dataset, device="cuda") -> list:
     return views
 
 
-def _gaussian_state(state: TrainState) -> GaussianState:
-    p = state.params
-    return GaussianState(
-        means=p["means"], quats=p["quats"], log_scales=p["log_scales"],
-        opacity_logits=p["opacity_logits"], sh=p["sh"], alive=state.alive)
-
-
 def interleave_slots(x: torch.Tensor, g: int) -> torch.Tensor:
     """Slot i -> shard i % g, local slot i // g (a transpose), so each of
     the g contiguous shards gets every g-th slot."""
@@ -825,8 +818,7 @@ class Trainer:
         overflow grows the eval capacities and renders again (or warns, or
         raises, by on_overflow)."""
         deg = self.cfg.sh_degree if sh_degree is None else sh_degree
-        state = self._whole_state()
-        p, alive = state.params, state.alive
+        p, alive = self._whole_params()
         bg = torch.zeros((3,), device=self.device)
 
         def render_checked(name, args):
@@ -857,31 +849,36 @@ class Trainer:
         cuda_lib.check_guards()
         return res
 
-    def _whole_state(self) -> TrainState:
-        """The whole train state on this rank's device: under a mesh its
-        shards gathered over the gauss group (every rank calls this
-        together)."""
-        if self.mesh is None or self.mesh.gauss == 1:
-            return self.state
-        from tpugs_torch.core.gaussians import train_state_from_numpy
-        from tpugs_torch.parallel.dist_train import gathered_numpy_state
+    def _whole_params(self):
+        """(params, alive) of the whole model on this rank's device: under a
+        mesh the shards gathered over the gauss group, on the device (a
+        collective: every rank calls this together)."""
+        if self.mesh is None:
+            return self.state.params, self.state.alive
+        from tpugs_torch.parallel.dist_train import gathered_params
 
-        return train_state_from_numpy(
-            gathered_numpy_state(self.mesh, self.state), self.device)
+        return gathered_params(self.mesh, self.state.params, self.state.alive)
 
     def gaussian_state(self) -> GaussianState:
         """The whole model (under a mesh: gathered, a collective)."""
-        return _gaussian_state(self._whole_state())
+        p, alive = self._whole_params()
+        return GaussianState(alive=alive, **p)
 
     def save_checkpoint(self, step: int, full: bool = True) -> str:
         """The live gaussians as a PLY and, with `full`, the whole train
         state as ckpt_<step>.npz (resumable). Under a mesh the shards are
-        gathered on every rank and rank 0 writes."""
+        gathered on the device of every rank and rank 0 writes: its one
+        copy to the host."""
         path = os.path.join(self.cfg.output_dir, f"model_{step:07d}.ply")
-        state = self._whole_state()
+        state = self.state
+        if self.mesh is not None:
+            from tpugs_torch.parallel.dist_train import gathered_train_state
+
+            state = gathered_train_state(self.mesh, state)
         if not self._primary:
             return path
-        arrays = _gaussian_state(state).compact_arrays()
+        arrays = GaussianState(alive=state.alive,
+                               **state.params).compact_arrays()
         write_gaussian_ply(
             path, arrays["means"], arrays["sh"], arrays["opacity_logits"],
             arrays["log_scales"], arrays["quats"])
