@@ -107,6 +107,19 @@ a nonzero exit:
      rank 1 at row offset 14 with its K1 (row-clipped rects), K2, K3, K4
      and K5 held against their plain versions and timed; the exchange's
      bytes per rank and step and the send capacity printed;
+  10. oracles (after phase viewer): (a) the pre-aligned path at the garden
+     train frame, bin_gaussians_aligned's layout equal to
+     align_segments(bin_gaussians(...)) on the card, CompositePre's image
+     equal to the kernel route's and its gradients held to the sorted
+     path's by the card-vs-CPU rule, K3 and K4b launched once each and
+     held against their plain versions, both paths' forward + backward
+     timed; (b) render(presort="fast") at the render CLI's frame 0 against
+     "exact" (max abs err, PSNR, sorted pairs that hold another gaussian),
+     K1-K3 once, ms per frame beside "exact" and "auto"; (c)
+     render(compositor="scan") on phase 2's scene (20k, 256x192, tile 16)
+     against the kernel route on the card and the scan on the CPU, image
+     and gradients, no kernel launched, timed; (d) the dense oracle on a
+     300-gaussian 64x48 scene against the scan on the card;
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -124,8 +137,9 @@ Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
 (the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
-anchor build and its drag, the mesh steps of (a) and of each rank of (b)
-among them),
+anchor build and its drag, the mesh steps of (a) and of each rank of (b),
+the pre-aligned, fast-presort and scan frames of phase oracles among
+them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -1186,12 +1200,17 @@ def garden_params(dev):
                             scale_range=(0.002, 0.015))
 
 
-def frame_grads(dev, params, **render_kw):
-    """One garden-shape frame's render() gradients of every parameter under
-    the train step's loss against a seeded target, and the launches of that
-    run alone."""
+def frame_grads(dev, params, pre: bool = False, **render_kw):
+    """One garden-shape frame's gradients of every parameter under the
+    train step's loss against a seeded target, the launches of that run
+    alone and its image: through render() (render_kw), or with pre=True
+    through the pre-aligned path (bin_gaussians_aligned + CompositePre)."""
     import torch
 
+    from tpugs_torch.ops import binning as B
+    from tpugs_torch.ops import composite as C
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.ops.rasterize_tiled import tiles_to_image
     from tpugs_torch.ops.render import RasterConfig, render
     from tpugs_torch.train.loss import combined_loss
     from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
@@ -1204,22 +1223,35 @@ def frame_grads(dev, params, **render_kw):
                         generator=torch.Generator(device=dev).manual_seed(0))
     tp = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     n = tp["means"].shape[0]
+    view = (torch.ones(n, dtype=torch.bool, device=dev),
+            torch.eye(4, device=dev),
+            torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev))
+    bg = torch.zeros(3, device=dev)
     torch.cuda.synchronize()
     reset_launches()
-    out = render(*[tp[k] for k in NAMES],
-                 torch.ones(n, dtype=torch.bool, device=dev),
-                 torch.eye(4, device=dev),
-                 torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev),
-                 cfg, 3, torch.zeros(3, device=dev), **render_kw)
-    grads = torch.autograd.grad(combined_loss(out.color, target),
+    if pre:
+        proj = project_gaussians(*[tp[k] for k in NAMES], *view, w, h, 3)
+        with torch.no_grad():
+            a = B.bin_gaussians_aligned(proj, w, h, 32, 32,
+                                        cfg.pair_capacity, C.p_aligned(cfg))
+        overflow = a.overflow | (
+            (a.tile_stop - a.tile_start).max() > cfg.max_hits_per_tile)
+        color_t, _, _ = C.CompositePre.apply(
+            cfg, a.tile_start, a.tile_stop, a.pair_gauss, a.pair_valid,
+            proj.means2d, proj.conic, proj.rgb, proj.opac, bg)
+        color = tiles_to_image(cfg, color_t)[:h, :w]
+    else:
+        out = render(*[tp[k] for k in NAMES], *view, cfg, 3, bg, **render_kw)
+        overflow = out.pair_overflow | out.hit_overflow
+        color = out.color
+    grads = torch.autograd.grad(combined_loss(color, target),
                                 [tp[k] for k in NAMES])
     torch.cuda.synchronize()
     launches = read_launches()
-    check(not bool(out.pair_overflow) and not bool(out.hit_overflow),
-          "garden frame overflowed")
+    check(not bool(overflow), "garden frame overflowed")
     for name, g in zip(NAMES, grads):
         check(bool(torch.isfinite(g).all()), f"d {name} not finite")
-    return grads, launches
+    return grads, launches, color.detach()
 
 
 def compare_grads(got, ref, what: str) -> float:
@@ -1245,20 +1277,20 @@ def phase_garden_grad_paths(dev, errs):
 
     params = garden_params(dev)
     with capturing(composite_t, "composite_backward") as k4:
-        sorted_g, sorted_l = frame_grads(dev, params)
+        sorted_g, sorted_l, _ = frame_grads(dev, params)
     check_launches(sorted_l, SORTED_PATH, 1, "sorted frames")
     composite.SORTED_SEGRED_MIN = 1 << 62
     try:
-        classic_g, classic_l = frame_grads(dev, params)
+        classic_g, classic_l, _ = frame_grads(dev, params)
     finally:
         composite.SORTED_SEGRED_MIN = 0
     check_launches(classic_l, CLASSIC_PATH, 1, "classic frames")
     w_classic = compare_grads(classic_g, sorted_g, "classic branch")
-    scatter_g, scatter_l = frame_grads(dev, params, need_grads=False)
+    scatter_g, scatter_l, _ = frame_grads(dev, params, need_grads=False)
     check_launches(scatter_l, ("expand", "align_copy", "composite_fwd",
                                "composite_bwd_entry"), 1, "scatter frames")
     w_scatter = compare_grads(scatter_g, sorted_g, "scatter gradient")
-    again, _ = frame_grads(dev, params, need_grads=False)
+    again, _, _ = frame_grads(dev, params, need_grads=False)
     same = all(torch.equal(a, b) for a, b in zip(scatter_g, again))
     with torch.no_grad():
         args = k4[0]
@@ -2376,6 +2408,321 @@ def phase_tools(tmp, dev):
           f"{dict(traced)}", flush=True)
 
 
+# Phase oracles: the scan oracle on phase 2's scene, the dense oracle on a
+# tiny one.
+ORACLE_W, ORACLE_H, ORACLE_N = 256, 192, 20_000
+DENSE_W, DENSE_H, DENSE_N = 64, 48, 300
+ORACLE_RTOL, ORACLE_ATOL_REL = 1e-4, 2e-5  # the CPU tests' gradient bounds
+DENSE_ATOL, DENSE_ATOL_REL = 2e-5, 3e-4  # dense -> scan, the tests' bounds
+
+
+def oracles_pre_aligned(dev, errs, card):
+    """(a) The pre-aligned path at the garden train frame: its layout
+    against align_segments(bin_gaussians(...)), its image and gradients
+    against the kernel route's, K3 and K4b launched once each and held
+    against their plain versions on the inputs it gave them, both paths'
+    forward + backward timed. Returns the pre frame's launches."""
+    import torch
+
+    from tpugs_torch.ops import binning as B
+    from tpugs_torch.ops import composite as C
+    from tpugs_torch.ops import composite_t
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.ops.rasterize_tiled import RasterConfig
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    w, h = TRAIN_W, TRAIN_H
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=32, tile_w=32,
+                       pair_capacity=TRAIN_PAIR_CAPACITY,
+                       max_hits_per_tile=TRAIN_MAX_HITS)
+    params = garden_params(dev)
+    n = params["means"].shape[0]
+    with torch.no_grad():
+        proj = project_gaussians(
+            *[params[k] for k in NAMES],
+            torch.ones(n, dtype=torch.bool, device=dev),
+            torch.eye(4, device=dev),
+            torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev),
+            w, h, 3)
+        pal = C.p_aligned(cfg)
+        a = B.bin_gaussians_aligned(proj, w, h, 32, 32, cfg.pair_capacity, pal)
+        b = B.bin_gaussians(proj, w, h, 32, 32, cfg.pair_capacity)
+        astart, astop, agauss, avalid = C.align_segments(
+            b.tile_start, b.tile_stop, b.pair_gauss, pal)
+    for name, x, y in (("tile_start", a.tile_start, astart),
+                       ("tile_stop", a.tile_stop, astop),
+                       ("pair_gauss", a.pair_gauss, agauss),
+                       ("pair_valid", a.pair_valid, avalid)):
+        check(torch.equal(x, y), f"bin_gaussians_aligned {name} differs from "
+              f"align_segments(bin_gaussians(...))")
+    pairs, valid = int(a.num_pairs), int(a.pair_valid.sum())
+    del proj, b, astart, astop, agauss, avalid
+    ref_g, _, ref_img = frame_grads(dev, params)
+    with capturing(composite_t, "composite_forward") as k3, \
+            capturing(composite_t, "composite_backward") as k4b:
+        grads, launches, img = frame_grads(dev, params, pre=True)
+    check_launches(launches, ("composite_fwd", "composite_bwd_entry"), 1,
+                   "pre-aligned frames")
+    err = float((img - ref_img).abs().max())
+    check(err == 0.0, f"pre-aligned image differs from the kernel route's "
+          f"by {err}")
+    worst = compare_grads(grads, ref_g, "pre-aligned path")
+    with torch.no_grad():
+        got = composite_t.composite_forward(*k3[0])
+        ref = composite_t.composite_forward_plain(*k3[0])
+        k3_err, m_nc, m_kl = compare_compositor(got, ref)
+        errs["composite_fwd"] = max(errs.get("composite_fwd", 0.0), k3_err)
+        args = k4b[0]
+        rows = composite_t.composite_backward(*args, transposed_out=False)
+        plain = composite_t.composite_backward_plain(*args,
+                                                     transposed_out=False)
+        # The slots K4b writes, each tile's [start, stop), are the ones
+        # that hold a pair.
+        walked = a.pair_valid
+        check(bool(torch.isfinite(rows[walked]).all()),
+              "K4b output not finite on the pre-aligned frame")
+        k4b_err = float((rows[walked] - plain[walked]).abs().max())
+    check(k4b_err == 0.0, f"K4b differs from its plain version on the "
+          f"pre-aligned frame by {k4b_err}")
+    errs["composite_bwd_entry"] = max(errs.get("composite_bwd_entry", 0.0),
+                                      k4b_err)
+    pre_ms = cuda_ms(lambda: frame_grads(dev, params, pre=True), reps=3,
+                     warmup=1)
+    route_ms = cuda_ms(lambda: frame_grads(dev, params), reps=3, warmup=1)
+    print(f"oracles (a) pre-aligned garden frame {w}x{h} {n}: {pairs} pairs, "
+          f"{valid} in {pal} aligned slots, layout equal to "
+          f"align_segments(bin_gaussians); image max abs err {err:.3g} "
+          f"against the kernel route; gradients within the card rule of the "
+          f"sorted path's on >= {worst:.6f} of elements; K3 max abs err "
+          f"{k3_err:.3g} (n_contrib/k_last equal {m_nc:.6f}/{m_kl:.6f}), K4b "
+          f"bit-identical to their plain versions; launches {launches}",
+          flush=True)
+    print(f"oracles (a) forward + backward: pre-aligned {pre_ms:.3f} ms, "
+          f"kernel route {route_ms:.3f} ms (CUDA events, means of 3) on "
+          f"{card}", flush=True)
+    return launches
+
+
+def oracles_fast_presort(dev, cli_params, card):
+    """(b) render(presort="fast") at the render CLI's frame 0: its image
+    against "exact" (max abs err, PSNR), the sorted pairs whose gaussian
+    differs, ms per frame beside "exact" and "auto"; K1-K3 once. Returns
+    the fast frame's launches."""
+    import torch
+
+    from tpugs_torch.core.gaussians import params_from_numpy
+    from tpugs_torch.ops import binning as B
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.ops.render import RasterConfig, render
+    from tpugs_torch.viewer.camera import orbit_trajectory
+
+    cfg = RasterConfig(img_h=CLI_H, img_w=CLI_W, tile_h=32, tile_w=32,
+                       pair_capacity=CLI_PAIR_CAPACITY,
+                       max_hits_per_tile=CLI_MAX_HITS)
+    cam = orbit_trajectory(cli_params["means"], CLI_FRAMES, CLI_W, CLI_H)[0]
+    p = params_from_numpy(cli_params, dev)
+    n = p["means"].shape[0]
+    view = (torch.ones(n, dtype=torch.bool, device=dev),
+            torch.as_tensor(cam.world_to_camera(), dtype=torch.float32,
+                            device=dev),
+            torch.as_tensor(cam.intrinsics_array(), device=dev))
+    bg = torch.zeros(3, device=dev)
+
+    def frame(presort):
+        with torch.no_grad():
+            out = render(*[p[k] for k in NAMES], *view, cfg, 3, bg,
+                         presort=presort, need_grads=False)
+        check(not bool(out.pair_overflow) and not bool(out.hit_overflow),
+              f"presort={presort!r} frame overflowed")
+        return out
+
+    frame("fast")  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    fast = frame("fast")
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_launches(launches, ("expand", "align_copy", "composite_fwd"), 1,
+                   "fast-presort frames")
+    exact = frame("exact")
+    err = float((fast.color - exact.color).abs().max())
+    db = psnr(fast.color, exact.color)
+    check(bool(torch.isfinite(fast.color).all()), "fast frame not finite")
+    check(int(fast.num_pairs) == int(exact.num_pairs), "fast frame pairs")
+    with torch.no_grad():
+        proj = project_gaussians(*[p[k] for k in NAMES], *view, CLI_W,
+                                 CLI_H, 3)
+        ids = []
+        for quant in (0, 12):
+            perm, pr = B.presort_by_depth(proj, quant_bits=quant)
+            bb = B.bin_gaussians_expand_kernel(pr, CLI_W, CLI_H, 32, 32,
+                                               cfg.pair_capacity,
+                                               presorted=True)
+            ids.append((perm[bb.pair_gauss.long()], bb))
+        (ge, be), (gf, bf) = ids
+        check(torch.equal(be.tile_start, bf.tile_start)
+              and torch.equal(be.tile_stop, bf.tile_stop),
+              "fast and exact presorts bin different pairs per tile")
+        valid = be.pair_tile < cfg.num_tiles
+        moved = int(((ge != gf) & valid).sum())
+    fast_ms = cuda_ms(lambda: frame("fast"), reps=5, warmup=1)
+    exact_ms = cuda_ms(lambda: frame("exact"), reps=5, warmup=1)
+    auto_ms = cuda_ms(lambda: frame("auto"), reps=5, warmup=1)
+    print(f"oracles (b) presort='fast' {CLI_W}x{CLI_H} {n} SH3: image against "
+          f"'exact' max abs err {err:.4g}, PSNR {db:.3f} dB; {moved} of "
+          f"{int(valid.sum())} sorted pairs hold another gaussian; launches "
+          f"{launches}", flush=True)
+    print(f"oracles (b) ms per frame: fast {fast_ms:.3f}, exact "
+          f"{exact_ms:.3f}, auto {auto_ms:.3f} (CUDA events, 5 frames) on "
+          f"{card}", flush=True)
+    return launches
+
+
+def _small_frame(p, dev, w, h, tile, compositor, target, dense=False):
+    """Image and loss gradients of one small frame (SH 3, identity camera)
+    through render(compositor=...), or through the dense oracle."""
+    import torch
+
+    from tpugs_torch.core.gaussians import params_from_numpy
+    from tpugs_torch.ops.projection import project_gaussians
+    from tpugs_torch.ops.rasterize_ref import render_reference
+    from tpugs_torch.ops.render import RasterConfig, render
+    from tpugs_torch.train.loss import combined_loss
+    from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
+
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
+                       pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
+    tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, dev).items()}
+    n = tp["means"].shape[0]
+    view = (torch.ones(n, dtype=torch.bool, device=dev),
+            torch.eye(4, device=dev),
+            torch.from_numpy(synthetic_intrinsics_numpy(w, h)).to(dev))
+    bg = torch.zeros(3, device=dev)
+    if dense:
+        proj = project_gaussians(*[tp[k] for k in NAMES], *view, w, h, 3)
+        color, _, nc = render_reference(proj, h, w, bg, tile, tile)
+    else:
+        out = render(*[tp[k] for k in NAMES], *view, cfg, 3, bg,
+                     compositor=compositor)
+        color, nc = out.color, out.n_contrib
+    grads = torch.autograd.grad(
+        combined_loss(color, torch.from_numpy(target).to(dev)),
+        [tp[k] for k in NAMES])
+    return color.detach(), nc, grads
+
+
+def _grads_within(got, ref, rtol, atol_rel, what):
+    """Every element of every group within rtol |ref| + atol_rel max|ref|
+    (the CPU tests' rule); returns the worst group's largest error over
+    its bound."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in zip(NAMES, got, ref):
+        a, b = a.cpu(), b.cpu()
+        check(bool(torch.isfinite(a).all()), f"{what}: d {name} not finite")
+        tol = rtol * b.abs() + atol_rel * float(b.abs().max())
+        ratio = float(((a - b).abs() / tol.clamp(min=1e-30)).max())
+        check(ratio <= 1.0, f"{what}: d {name} off by {ratio:.3g} x its "
+              f"bound")
+        worst = max(worst, ratio)
+    return worst
+
+
+def oracles_scan(dev, card):
+    """(c) render(compositor="scan") on phase 2's scene: image and
+    gradients against the kernel route on the card and against the scan
+    on the CPU; no kernel launched. Returns the scan frame's launches."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.utils.synthetic import synthetic_params_numpy
+
+    w, h, tile = ORACLE_W, ORACLE_H, 16
+    p = synthetic_params_numpy(ORACLE_N, seed=0)
+    target = np.random.default_rng(1).uniform(0, 1, (h, w, 3)).astype(
+        np.float32)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    scan = _small_frame(p, dev, w, h, tile, "scan", target)
+    torch.cuda.synchronize()
+    scan_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    check_launches(launches, (), 1, "scan frames")
+    t0 = time.perf_counter()
+    kern = _small_frame(p, dev, w, h, tile, "kernel", target)
+    torch.cuda.synchronize()
+    kern_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = _small_frame(p, torch.device("cpu"), w, h, tile, "scan", target)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    err_k = float((scan[0] - kern[0]).abs().max())
+    err_c = float((scan[0].cpu() - cpu[0]).abs().max())
+    check(err_k <= ATOL and err_c <= ATOL, f"scan image against the kernel "
+          f"route {err_k}, against the CPU scan {err_c} (> {ATOL})")
+    nc_k = float((scan[1] == kern[1]).float().mean())
+    check(nc_k >= MIN_MATCH, f"scan n_contrib equal to the kernel route's "
+          f"on {nc_k}")
+    ratio = _grads_within(scan[2], kern[2], ORACLE_RTOL, ORACLE_ATOL_REL,
+                          "scan against the kernel route")
+    shares = [close_share(a.cpu(), b) for a, b in zip(scan[2], cpu[2])]
+    check(min(shares) >= MIN_GRAD_MATCH, f"scan gradients card vs CPU "
+          f"within the card rule on only {shares}")
+    print(f"oracles (c) scan {w}x{h} {ORACLE_N} SH3 tile {tile}: image "
+          f"against the "
+          f"kernel route max abs err {err_k:.3g} (n_contrib equal "
+          f"{nc_k:.6f}), against the CPU scan {err_c:.3g}; gradients within "
+          f"the tests' bound of the kernel route's (worst {ratio:.3f} of "
+          f"it), within the card rule of the CPU's on >= {min(shares):.6f}; "
+          f"no kernel launched", flush=True)
+    print(f"oracles (c) forward + backward: scan {scan_ms:.1f} ms, kernel "
+          f"route {kern_ms:.1f} ms on {card}; scan on the CPU {cpu_ms:.1f} "
+          f"ms (first calls, host clock)", flush=True)
+    return launches
+
+
+def oracles_dense(dev, card):
+    """(d) composite_dense on a tiny scene against the scan, on the card:
+    image, n_contrib and gradients at the tests' chain bounds."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.utils.synthetic import synthetic_params_numpy
+
+    w, h = DENSE_W, DENSE_H
+    p = synthetic_params_numpy(DENSE_N, seed=3, scale_range=(0.03, 0.2))
+    target = np.random.default_rng(2).uniform(0, 1, (h, w, 3)).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    dense = _small_frame(p, dev, w, h, 16, None, target, dense=True)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    scan = _small_frame(p, dev, w, h, 16, "scan", target)
+    err = float((dense[0] - scan[0]).abs().max())
+    check(err <= DENSE_ATOL, f"dense oracle against the scan: {err}")
+    check(torch.equal(dense[1], scan[1]), "dense n_contrib differs")
+    check(int(dense[1].max()) > 1, "dense scene composites nothing twice")
+    ratio = _grads_within(scan[2], dense[2], 0.0, DENSE_ATOL_REL,
+                          "scan against the dense oracle")
+    print(f"oracles (d) dense {w}x{h} {DENSE_N} SH3: image against the scan "
+          f"max abs err {err:.3g}, n_contrib equal (max "
+          f"{int(dense[1].max())}), gradients within the tests' bound (worst "
+          f"{ratio:.3f} of it); dense {dense_ms:.1f} ms on {card}",
+          flush=True)
+
+
+def phase_oracles(dev, cli_params, errs, card):
+    """The oracles and the variants that only they reach: (a)-(d) above.
+    Returns the launches of the pre-aligned, fast-presort and scan
+    frames."""
+    pre = oracles_pre_aligned(dev, errs, card)
+    fast = oracles_fast_presort(dev, cli_params, card)
+    scan = oracles_scan(dev, card)
+    oracles_dense(dev, card)
+    return pre, fast, scan
+
+
 MESH_STEPS = 4  # timed steps after step 0, per mesh configuration
 MESH_CLI_STEPS = 4
 ULP2 = 5e-7  # mesh colour against the single-device render (tpugs' bound)
@@ -2765,6 +3112,9 @@ def main() -> int:
             print_rows(carry_rows, "train frame")
         with Phase("viewer", 300):
             anchor_launches, drag_launches = phase_viewer(dev, params)
+        with Phase("oracles", 300):
+            pre_launches, fast_launches, scan_launches = phase_oracles(
+                dev, params, errs, card)
         del params
         with Phase("large-scene", 600):
             large_rows, large_launches, _, _, k1_large = phase_large_scene(
@@ -2794,7 +3144,10 @@ def main() -> int:
         "mcmc_train_cli": mcmc_launches, "viewer_anchor": anchor_launches,
         "viewer_drag": drag_launches, "mesh_1x1_steps": mesh_launches,
         "mesh_1x2_rank0_steps": rank0_launches,
-        "mesh_1x2_rank1_steps": rank1_launches})
+        "mesh_1x2_rank1_steps": rank1_launches,
+        "pre_aligned_garden_frame": pre_launches,
+        "fast_presort_render_frame": fast_launches,
+        "scan_frame": scan_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,9 @@ import pytest
 import torch
 
 from tests.test_torch_carry import _by_pair
-from tests.torch_parity import (assert_segments_equal, jax_projection, np_,
-                                random_projection, segments, torch_projection)
+from tests.torch_parity import (PROJ_FIELDS, assert_segments_equal,
+                                jax_projection, np_, random_projection,
+                                segments, torch_projection)
 from tpugs.ops import binning as JB
 from tpugs.ops.pallas import expand as JEX
 from tpugs_torch.ops import binning as TB
@@ -85,6 +86,89 @@ def test_presorted_bit_identical(w, h, tile, overflow):
     assert_segments_equal(
         JB.bin_gaussians(jps, w, h, tile, tile, cap, presorted=True),
         TB.bin_gaussians(tps, w, h, tile, tile, cap, presorted=True), nt)
+
+
+FAST_BITS = 12  # render(presort="fast")'s
+
+
+def _fast_bins(jp, n):
+    """The reference's depth bins of presort_by_depth(quant_bits=12), as
+    float32 before the cast (tpugs/ops/binning.py's formula)."""
+    bits = min(FAST_BITS, 32 - max(1, (n - 1).bit_length()))
+    nbins = (1 << bits) - 1
+    d, vis = jp.depths, jp.visible
+    dmin = jnp.min(jnp.where(vis, d, jnp.inf))
+    dmax = jnp.max(jnp.where(vis, d, -jnp.inf))
+    scale = (nbins - 1) / jnp.maximum(dmax - dmin, 1e-12)
+    return np.asarray(jnp.clip((d - dmin) * scale, 0, nbins - 1)), nbins
+
+
+@pytest.mark.parametrize("w,h,tile", SHAPES)
+@pytest.mark.parametrize("seed,ties", [(0, True), (5, False)])
+def test_fast_presort_matches_jax(w, h, tile, seed, ties):
+    """presort_by_depth(quant_bits=12): the permutation and the permuted
+    projection equal tpugs'; inside a bin by index; invisible last; the
+    presorted binning of it bit-identical to tpugs' too."""
+    jp, tp = _inputs(w, h, seed, ties=ties)
+    perm_j, jps = JB.presort_by_depth(jp, quant_bits=FAST_BITS)
+    perm_t, tps = TB.presort_by_depth(tp, quant_bits=FAST_BITS)
+    perm = np_(perm_t)
+    np.testing.assert_array_equal(perm, np_(perm_j))
+    for f in PROJ_FIELDS:
+        np.testing.assert_array_equal(np_(getattr(tps, f)),
+                                      np_(getattr(jps, f)), err_msg=f)
+    vis = np_(tp.visible)[perm]
+    nvis = int(vis.sum())
+    assert vis[:nvis].all() and not vis[nvis:].any()
+    bins = _fast_bins(jp, perm.shape[0])[0].astype(np.int64)[perm[:nvis]]
+    assert np.all(np.diff(bins) >= 0)
+    same = np.diff(bins) == 0
+    assert same.any() and np.all(np.diff(perm[:nvis])[same] > 0)
+    ref = JB.bin_gaussians_expand_kernel(jps, w, h, tile, tile, CAP,
+                                         interpret=True, presorted=True)
+    got = TB.bin_gaussians_expand_kernel(tps, w, h, tile, tile, CAP,
+                                         presorted=True)
+    assert_segments_equal(ref, got, _num_tiles(w, h, tile))
+
+
+def test_fast_presort_distinct_bins_equal_exact():
+    """Where every distinct visible depth has a bin of its own, the fast
+    presort is the exact one, bit for bit (ties break by index in both)."""
+    d = random_projection(300, 96, 64, 0, ties=False)
+    levels = 64
+    d["depths"] = (np.round((d["depths"] - 0.5) / 19.5 * (levels - 1))
+                   / (levels - 1) * 19.5 + 0.5).astype(np.float32)
+    jp, tp = jax_projection(d), torch_projection(d)
+    # Precondition: distinct depths lie at least 2 bins apart and no
+    # interior depth within 1e-3 of a bin edge, so no ulp decides a bin.
+    x, nbins = _fast_bins(jp, 300)
+    xv = np.unique(x[d["visible"]].astype(np.float64))
+    assert np.diff(xv).min() >= 2.0
+    inner = xv[(xv > 0) & (xv < nbins - 1)]
+    assert np.abs(inner - np.round(inner)).min() > 1e-3
+    perm_e, pe = TB.presort_by_depth(tp)
+    perm_f, pf = TB.presort_by_depth(tp, quant_bits=FAST_BITS)
+    assert torch.equal(perm_e, perm_f)
+    for f in PROJ_FIELDS:
+        assert torch.equal(getattr(pe, f), getattr(pf, f)), f
+
+
+def test_fast_presort_edges_match_jax(monkeypatch):
+    """No visible gaussian: every key in the sentinel bin, the index order.
+    An index past 31 bits: the exact sort (forced here through the
+    index-bit count)."""
+    d = random_projection(200, 64, 48, 3)
+    d["visible"][:] = False
+    jp, tp = jax_projection(d), torch_projection(d)
+    perm_t = np_(TB.presort_by_depth(tp, quant_bits=FAST_BITS)[0])
+    np.testing.assert_array_equal(
+        perm_t, np_(JB.presort_by_depth(jp, quant_bits=FAST_BITS)[0]))
+    np.testing.assert_array_equal(perm_t, np.arange(200))
+    d = random_projection(200, 64, 48, 3)
+    tp = torch_projection(d)
+    exact = TB.presort_by_depth(tp)[0]
+    monkeypatch.setattr(TB, "_index_bits", lambda n: 32)
+    assert torch.equal(TB.presort_by_depth(tp, quant_bits=FAST_BITS)[0], exact)
 
 
 def _qbins(proj, w, h, tile):

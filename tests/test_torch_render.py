@@ -8,7 +8,7 @@ import pytest
 import torch
 from PIL import Image
 
-from tests.torch_parity import np_
+from tests.torch_parity import assert_grads_close, np_, render_grads_both
 from tpugs.apps.render import main as jax_render_main
 from tpugs.ops.render import RasterConfig as JaxConfig
 from tpugs.ops.render import render as jax_render
@@ -65,7 +65,7 @@ def _assert_outputs_match(got, ref):
 
 @pytest.mark.parametrize("w,h,tile,seed,presort", [
     (64, 48, 16, 0, "exact"), (96, 64, 32, 1, False), (96, 64, 16, 2, "qkey"),
-    (64, 48, 32, 3, "auto"),
+    (64, 48, 32, 3, "auto"), (96, 64, 16, 4, "fast"),
 ])
 def test_render_matches_jax(w, h, tile, seed, presort):
     p, vm, intr = _case(w, h, seed)
@@ -73,6 +73,21 @@ def test_render_matches_jax(w, h, tile, seed, presort):
     _assert_outputs_match(got, ref)
     assert got.color.shape == (h, w, 3) and np_(got.n_contrib).max() > 1
     assert not bool(got.pair_overflow) and not bool(got.hit_overflow)
+
+
+def test_render_fast_presort_gradients_match_jax():
+    """render(presort="fast") with gradients against tpugs' (its kernel
+    branch, interpret mode): image, probe and every parameter's gradient
+    (tests/test_torch_backward.py's tolerances); and within tpugs' own
+    bound (0.05) of the exact presort's image."""
+    p, vm, intr = _case(64, 48, 6)
+    alive = np.ones(300, bool)
+    out, jo, got, ref = render_grads_both(p, alive, vm, intr, 64, 48, 16,
+                                          "fast")
+    np.testing.assert_allclose(np_(out.color), np_(jo.color), atol=ATOL)
+    assert_grads_close(got, ref)
+    exact, _ = _both(p, vm, intr, 64, 48, 16, "exact")
+    np.testing.assert_allclose(np_(out.color), np_(exact.color), atol=0.05)
 
 
 @pytest.mark.parametrize("cap,max_hits", [(150, 512), (8192, 4)])

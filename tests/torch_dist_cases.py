@@ -38,7 +38,7 @@ def _shard(mesh, x):
 
 
 def _tile_forward(mesh, cfg, params, alive, viewmat, intr, sh_degree,
-                  send_capacity=None):
+                  send_capacity=None, compositor="auto"):
     g = mesh.gauss
     local_cfg = local_raster_config(cfg, g, -(-cfg.pair_capacity // g))
     p = {k: _shard(mesh, v) for k, v in params.items()}
@@ -49,7 +49,7 @@ def _tile_forward(mesh, cfg, params, alive, viewmat, intr, sh_degree,
                                  _t(intr), cfg.img_w, cfg.img_h, sh_degree)
         cap = send_capacity if send_capacity is not None else a.shape[0]
         color_t, _, _, diag = exchange_and_render_local(
-            proj, cfg, local_cfg, mesh, cap, torch.zeros(3),
+            proj, cfg, local_cfg, mesh, cap, torch.zeros(3), compositor,
             need_grads=False)
         color = assemble_image(cfg, mesh, color_t)
         send_of = comm.all_reduce(diag["send_overflow"], mesh, BOTH, "max")
@@ -57,7 +57,8 @@ def _tile_forward(mesh, cfg, params, alive, viewmat, intr, sh_degree,
     return color.numpy(), bool(send_of), bool(pair_of)
 
 
-def _tile_grads(mesh, cfg, params, alive, images, viewmats, intr, sh_degree):
+def _tile_grads(mesh, cfg, params, alive, images, viewmats, intr, sh_degree,
+                compositor="auto"):
     """The normalised gradients and loss of the tile-sharded render, each
     data row on its own view."""
     g = mesh.gauss
@@ -70,7 +71,7 @@ def _tile_grads(mesh, cfg, params, alive, images, viewmats, intr, sh_degree):
                              _t(viewmats[i]), _t(intr[i]), cfg.img_w,
                              cfg.img_h, sh_degree)
     color_t, _, _, _ = exchange_and_render_local(
-        proj, cfg, local_cfg, mesh, a.shape[0], torch.zeros(3))
+        proj, cfg, local_cfg, mesh, a.shape[0], torch.zeros(3), compositor)
     color = assemble_image(cfg, mesh, color_t)
     loss = combined_loss(color, _t(images[i]), 0.2)
     grads = torch.autograd.grad(loss, [p[k] for k in NAMES])
@@ -80,7 +81,7 @@ def _tile_grads(mesh, cfg, params, alive, images, viewmats, intr, sh_degree):
 
 
 def _one_step(make, mesh, cfg, params, alive, images, viewmats, intr,
-              shard_params: bool):
+              shard_params: bool, **make_kw):
     from tpugs_torch.parallel.gauss_shard import shard_gauss_state
     from tpugs_torch.parallel.sharded_train import replicate, shard_batch
 
@@ -91,7 +92,7 @@ def _one_step(make, mesh, cfg, params, alive, images, viewmats, intr,
     else:
         p, a, adam = replicate(mesh, (p, _t(alive), adam))
     im, vm, it = shard_batch(mesh, images, viewmats, intr)
-    step = make(mesh, cfg, AdamConfig(), sh_degree=1)
+    step = make(mesh, cfg, AdamConfig(), sh_degree=1, **make_kw)
     new_p, _, loss = step(p, a, adam, im, vm, it, torch.zeros(()))
     return _np(new_p), float(loss)
 
@@ -131,6 +132,24 @@ def parallel_world(rank, world, params, alive, images, viewmats, intr, cfg,
     out["mesh"] = (m22.data_index, m22.gauss_index, m14.gauss_index,
                    m41.data_index)
     return out
+
+
+def scan_world(rank, world, params, alive, images, viewmats, intr, cfg):
+    """The tile-sharded scan route (compositor="scan") on a 2x2 mesh: the
+    forward, the normalised gradients and one tile-sharded train step."""
+    from tpugs_torch.parallel.tile_shard import make_tile_sharded_train_step
+
+    cfg = RasterConfig(**cfg)
+    m22 = make_mesh((2, 2), device="cpu")
+    return {
+        "forward": _tile_forward(m22, cfg, params, alive, viewmats[0],
+                                 intr[0], 1, compositor="scan"),
+        "grads": _tile_grads(m22, cfg, params, alive, images[:2],
+                             viewmats[:2], intr[:2], 1, compositor="scan"),
+        "tile_step": _one_step(make_tile_sharded_train_step, m22, cfg,
+                               params, alive, images[:2], viewmats[:2],
+                               intr[:2], True, compositor="scan"),
+    }
 
 
 def _densify(mesh, flat, noise, pruning, extent, cfg):

@@ -68,13 +68,28 @@ def assert_segments_equal(b_ref, b_new, num_tiles: int):
     assert bool(b_ref.overflow) == bool(b_new.overflow)
 
 
+def assert_grads_close(got: dict, ref: dict, rtol: float = 1e-4,
+                       atol_rel: float = 2e-5):
+    """Every group of `got` finite, of ref's shape and within rtol |ref| +
+    atol_rel max|ref| of it (the render gradients' rule: the packages add
+    a gaussian's pairs in different orders)."""
+    for k, r in ref.items():
+        g = got[k]
+        assert g.shape == r.shape, k
+        assert np.isfinite(g).all(), f"{k}: not finite"
+        scale = max(np.abs(r).max(), 1e-30)
+        np.testing.assert_allclose(g, r, rtol=rtol, atol=atol_rel * scale,
+                                   err_msg=k)
+
+
 def render_grads_both(p, alive, vm, intr, w, h, tile, presort, cap=8192,
-                      max_hits=512, seed=0, **render_kw):
+                      max_hits=512, seed=0, compositor="kernel", **render_kw):
     """render()'s gradients in both packages under one seeded cotangent of
     color and final_T, for every parameter, the screen-space probe and the
     background. render_kw (need_grads, carry_attrs) go to both renders;
-    tpugs renders with compositor="pallas". Returns (port output, tpugs
-    output, port gradients, tpugs gradients), gradients as numpy dicts."""
+    compositor "kernel" renders tpugs with compositor="pallas", "scan" both
+    with "scan". Returns (port output, tpugs output, port gradients, tpugs
+    gradients), gradients as numpy dicts."""
     import jax
     import jax.numpy as jnp
 
@@ -96,7 +111,8 @@ def render_grads_both(p, alive, vm, intr, w, h, tile, presort, cap=8192,
                  torch.from_numpy(vm), torch.from_numpy(intr),
                  RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
                               pair_capacity=cap, max_hits_per_tile=max_hits),
-                 3, tbg, means2d_probe=probe, presort=presort, **render_kw)
+                 3, tbg, means2d_probe=probe, compositor=compositor,
+                 presort=presort, **render_kw)
     loss = ((out.color * torch.from_numpy(c_col)).sum()
             + (out.final_T * torch.from_numpy(c_t)).sum())
     gs = torch.autograd.grad(loss, [tp[k] for k in NAMES] + [probe, tbg])
@@ -108,7 +124,8 @@ def render_grads_both(p, alive, vm, intr, w, h, tile, presort, cap=8192,
     def jloss(params, probe, bgv):
         o = jax_render(*[params[k] for k in NAMES], jnp.asarray(alive),
                        jnp.asarray(vm), jnp.asarray(intr), jcfg, 3, bgv,
-                       means2d_probe=probe, compositor="pallas",
+                       means2d_probe=probe,
+                       compositor="scan" if compositor == "scan" else "pallas",
                        presort=presort, **render_kw)
         return jnp.sum(o.color * c_col) + jnp.sum(o.final_T * c_t), o
 

@@ -128,13 +128,41 @@ def cull_radius_sq(proj: ProjectionOutput) -> torch.Tensor:
     return torch.where(proj.visible, r2, torch.zeros_like(r2))
 
 
-def presort_by_depth(proj: ProjectionOutput):
-    """Sort the projection front to back once per frame (stable, so equal
-    depths keep index order), making the gaussian index the depth rank.
-    Returns (perm [N] int64, permuted ProjectionOutput)."""
-    inf = torch.full_like(proj.depths, float("inf"))
-    key = torch.where(proj.visible, proj.depths, inf)
-    _, perm = torch.sort(key, stable=True)
+def presort_by_depth(proj: ProjectionOutput, quant_bits: int = 0):
+    """Sort the projection front to back once per frame, making the
+    gaussian index the depth rank. Returns (perm [N] int64, permuted
+    ProjectionOutput).
+
+    quant_bits = 0: a stable sort by depth, invisible gaussians last, so
+    equal depths keep index order. quant_bits > 0 (render(presort="fast")):
+    the reference's one packed key, depth bin << idx_bits | index, the
+    depth binned linearly over the visible [min, max] into min(quant_bits,
+    32 - idx_bits) bits, the last bin for the invisible; ties inside a bin
+    break by index, so gaussians in distinct bins keep the exact order.
+    The bins are the reference's float32 ops in its order; the key is
+    int64 (the order of the reference's u32). The exact sort when the
+    index takes more than 31 bits."""
+    n = proj.depths.shape[0]
+    idx_bits = _index_bits(n)
+    if quant_bits > 0 and idx_bits <= 31:
+        bits = min(quant_bits, 32 - idx_bits)
+        nbins = (1 << bits) - 1  # the last bin: the invisible sentinel
+        d, vis = proj.depths, proj.visible
+        inf = torch.full_like(d, float("inf"))
+        dmin = torch.min(torch.where(vis, d, inf))
+        dmax = torch.max(torch.where(vis, d, -inf))
+        scale = torch.div(torch.full_like(dmin, nbins - 1),
+                          torch.clamp(dmax - dmin, min=1e-12))
+        q = torch.clamp((d - dmin) * scale, 0, nbins - 1)
+        # Selected before the cast: an invisible depth may be inf or NaN.
+        q = torch.where(vis, q, torch.zeros_like(q)).to(torch.int64)
+        q = torch.where(vis, q, torch.full_like(q, nbins))
+        key = (q << idx_bits) | torch.arange(n, device=d.device)
+        perm = torch.sort(key).values & ((1 << idx_bits) - 1)
+    else:
+        inf = torch.full_like(proj.depths, float("inf"))
+        key = torch.where(proj.visible, proj.depths, inf)
+        _, perm = torch.sort(key, stable=True)
     return perm, ProjectionOutput(
         means2d=proj.means2d[perm], depths=proj.depths[perm],
         conic=proj.conic[perm], radii=proj.radii[perm], rgb=proj.rgb[perm],
@@ -221,14 +249,13 @@ def _clip_rows(ty0, h_tiles, tile_row_lo: int, num_tile_rows: int):
     return ty0, torch.clamp(ty1 - ty0, min=0)
 
 
-def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
-                  tile_h: int, pair_capacity: int, presorted: bool = False,
-                  tile_row_lo: int = 0, num_tile_rows: int = 0
-                  ) -> BinningResult:
-    """The oracle: the reference's whole-capacity expansion (marker
-    histogram + cumsum ownership over pair_capacity slots), then the same
-    sort as the kernel path. num_tile_rows > 0: slice binning (see the
-    module's docstring)."""
+def _expand_whole(proj: ProjectionOutput, img_w: int, img_h: int,
+                  tile_w: int, tile_h: int, pair_capacity: int,
+                  tile_row_lo: int, num_tile_rows: int):
+    """The reference's whole-capacity expansion: pair_capacity slots, each
+    owned by the gaussian a marker histogram + cumsum gives it, culled at
+    its tile's nearest pixel. -> (tile id [P] (num_tiles where invalid),
+    depth [P] (inf where invalid), owner [P] int64, num_tiles, n, total)."""
     ntx = -(-img_w // tile_w)
     nty = -(-img_h // tile_h)
     if num_tile_rows <= 0:
@@ -265,8 +292,86 @@ def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
     tile_id = torch.where(valid, tile_id, torch.full_like(tile_id, num_tiles))
     depth = torch.where(valid, proj.depths[g],
                         torch.full_like(gx, float("inf")))
+    return tile_id, depth, g, num_tiles, n, total
+
+
+def bin_gaussians(proj: ProjectionOutput, img_w: int, img_h: int, tile_w: int,
+                  tile_h: int, pair_capacity: int, presorted: bool = False,
+                  tile_row_lo: int = 0, num_tile_rows: int = 0
+                  ) -> BinningResult:
+    """The oracle: the reference's whole-capacity expansion (marker
+    histogram + cumsum ownership over pair_capacity slots), then the same
+    sort as the kernel path. num_tile_rows > 0: slice binning (see the
+    module's docstring)."""
+    tile_id, depth, g, num_tiles, n, total = _expand_whole(
+        proj, img_w, img_h, tile_w, tile_h, pair_capacity, tile_row_lo,
+        num_tile_rows)
     return sort_pairs(tile_id, depth, g, num_tiles, n, total, pair_capacity,
                       presorted=presorted)
+
+
+@dataclasses.dataclass
+class AlignedBinningResult:
+    """The sorted pair list in the compositor kernels' aligned layout:
+    every tile's segment starts on an `align` boundary of a [p_aligned]
+    slot array, gap slots invalid.
+
+    pair_gauss [P_al]  int32 gaussian index (0 where invalid)
+    pair_valid [P_al]  bool
+    tile_start [T]     int32 aligned segment starts
+    tile_stop  [T]     int32 start + the tile's pair count
+    num_pairs  []      true pre-cull pair count
+    overflow   []      bool: the pair or the aligned capacity exceeded
+    """
+
+    pair_gauss: torch.Tensor
+    pair_valid: torch.Tensor
+    tile_start: torch.Tensor
+    tile_stop: torch.Tensor
+    num_pairs: torch.Tensor
+    overflow: torch.Tensor
+
+
+def bin_gaussians_aligned(proj: ProjectionOutput, img_w: int, img_h: int,
+                          tile_w: int, tile_h: int, pair_capacity: int,
+                          p_aligned: int, align: int = 128,
+                          tile_row_lo: int = 0, num_tile_rows: int = 0
+                          ) -> AlignedBinningResult:
+    """bin_gaussians' 2-key sort laid out straight into the aligned layout,
+    as the reference's: the per-tile counts histogram (the sentinel tile
+    written into a last row that is cut off), aligned starts, and one
+    scatter of each sorted pair to its aligned slot (invalid pairs and
+    those past p_aligned into a last slot that is cut off). Equal to
+    composite.align_segments(bin_gaussians(...)) with the same p_aligned."""
+    tile_id, depth, g, num_tiles, n, total = _expand_whole(
+        proj, img_w, img_h, tile_w, tile_h, pair_capacity, tile_row_lo,
+        num_tile_rows)
+    b = sort_pairs(tile_id, depth, g, num_tiles, n, total, pair_capacity)
+    dev = tile_id.device
+    tcounts = torch.zeros(num_tiles + 1, dtype=torch.int64, device=dev)
+    tcounts.index_add_(0, tile_id, torch.ones_like(tile_id))
+    tcounts = tcounts[:num_tiles]
+    padded = (tcounts + (align - 1)) // align * align
+    astart = torch.cumsum(padded, 0) - padded
+    aligned_total = astart[-1] + padded[-1]
+    # Sorted pair s of tile t goes to astart[t] + (s - tile_start[t]).
+    delta = astart - b.tile_start.to(torch.int64)
+    sorted_tile = b.pair_tile.to(torch.int64)
+    slots = torch.arange(sorted_tile.shape[0], device=dev)
+    apos = slots + delta[torch.clamp(sorted_tile, max=num_tiles - 1)]
+    keep = (sorted_tile < num_tiles) & (apos < p_aligned)
+    apos = torch.where(keep, apos, torch.full_like(apos, p_aligned))
+    packed = torch.zeros(p_aligned + 1, dtype=torch.int64, device=dev)
+    packed[apos] = b.pair_gauss.to(torch.int64) + 1  # 0: an empty slot
+    packed = packed[:p_aligned]
+    return AlignedBinningResult(
+        pair_gauss=torch.clamp(packed - 1, min=0).to(torch.int32),
+        pair_valid=packed > 0,
+        tile_start=astart.to(torch.int32),
+        tile_stop=(astart + tcounts).to(torch.int32),
+        num_pairs=b.num_pairs,
+        overflow=b.overflow | (aligned_total > p_aligned),
+    )
 
 
 @dataclasses.dataclass

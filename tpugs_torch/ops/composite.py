@@ -27,6 +27,14 @@ sum dC T_final. The pair -> gaussian sum between them is one of three:
   entry-major rows masked as in the sorted branch and added into their
   gaussians by the f32 id row, with index_add_ (the reference's XLA
   scatter-add); so it takes at most 2^24 gaussians.
+
+The pre-aligned path (`CompositePre`, the reference's
+composite_tiles_pallas_pre) takes binning.bin_gaussians_aligned's layout:
+the attributes are gathered straight into [ATTR_ROWS, P_al] at the static
+capacity `p_aligned(cfg)` (no pack, no align-copy), the forward kernel
+composites them, and the backward takes the entry-major rows through
+index_add_ by the int32 pair_gauss. `align_segments` is that layout's
+oracle, from a compact binning.
 """
 from __future__ import annotations
 
@@ -106,6 +114,16 @@ def _param_grads(acc: torch.Tensor, d_color, final_t):
 
 def _r0(d_color, d_final_t, final_t, bg):
     return (((d_color * bg).sum(-1) + d_final_t) * final_t).contiguous()
+
+
+def _scatter_rows(d_rows: torch.Tensor, valid: torch.Tensor,
+                  gid: torch.Tensor, n: int) -> torch.Tensor:
+    """Entry-major rows [P_al, NUM_ATTR] added into their gaussians [n,
+    NUM_ATTR] by index_add_ (the reference's scatter-add), the slots that
+    hold no pair selected away first: unwritten ones may hold NaN."""
+    gid = torch.where(valid, gid, torch.zeros_like(gid))
+    rows = torch.where(valid[:, None], d_rows, d_rows.new_zeros(()))
+    return rows.new_zeros((n, pack.NUM_ATTR)).index_add_(0, gid, rows)
 
 
 def reduce_pair_grads(d_attr: torch.Tensor, attr: torch.Tensor,
@@ -233,12 +251,90 @@ class CompositeScatter(torch.autograd.Function):
         d_rows = composite_t.composite_backward(
             ctx.cfg, astart, astop, attr, d_color, r0, final_t.contiguous(),
             kl, ctx.row_offset, transposed_out=False)
-        valid = _pair_mask(attr, astop)
-        gid = torch.where(valid, attr[pack.GID_ROW].to(torch.int64),
-                          torch.zeros_like(valid, dtype=torch.int64))
-        rows = torch.where(valid[:, None], d_rows, d_rows.new_zeros(()))
-        acc = rows.new_zeros((ctx.n, pack.NUM_ATTR)).index_add_(0, gid, rows)
+        acc = _scatter_rows(d_rows, _pair_mask(attr, astop),
+                            attr[pack.GID_ROW].to(torch.int64), ctx.n)
         d_means2d, d_conic, d_rgb, d_opac, d_bg = _param_grads(
             acc, d_color, final_t)
         return (None, None, None, None, d_means2d, d_conic, d_rgb, d_opac,
                 d_bg, None, None)
+
+
+def p_aligned(cfg: RasterConfig) -> int:
+    """The pre-aligned layout's capacity, the reference's _p_aligned: a
+    pad of LANE_ALIGN per tile (not pack.p_aligned_chunked's LANE_ALIGN -
+    1), rounded up to CHUNK, plus CHUNK."""
+    raw = cfg.pair_capacity + cfg.num_tiles * pack.LANE_ALIGN
+    return -(-raw // pack.CHUNK) * pack.CHUNK + pack.CHUNK
+
+
+def align_segments(tile_start, tile_stop, pair_gauss, p_aligned: int):
+    """The aligned layout from a compact sorted pair list (the oracle of
+    bin_gaussians_aligned): every tile's segment moved to its
+    pack.aligned_offsets start, gap slots invalid. Slot ownership by a
+    marker histogram + cumsum over the aligned starts (a start at or past
+    p_aligned goes to a last row that is cut off). -> (astart [T], astop
+    [T] int32, aligned_gauss [p_aligned] int32 (0 where invalid), valid
+    [p_aligned])."""
+    dev = tile_start.device
+    astart, astop, counts = pack.aligned_offsets(tile_start, tile_stop)
+    a64, c64 = astart.to(torch.int64), counts.to(torch.int64)
+    pos = torch.arange(p_aligned, device=dev)
+    ind = torch.zeros(p_aligned + 1, dtype=torch.int64, device=dev)
+    ind.index_add_(0, torch.clamp(a64, max=p_aligned), torch.ones_like(a64))
+    t = torch.clamp(torch.cumsum(ind[:p_aligned], 0) - 1, 0,
+                    counts.shape[0] - 1)
+    local = pos - a64[t]
+    valid = (local >= 0) & (local < c64[t])
+    src = torch.clamp(pos + (tile_start.to(torch.int64) - a64)[t], 0,
+                      pair_gauss.shape[0] - 1)
+    aligned_gauss = torch.where(valid, pair_gauss[src].to(torch.int32),
+                                torch.zeros((), dtype=torch.int32, device=dev))
+    return astart, astop, aligned_gauss, valid
+
+
+class CompositePre(torch.autograd.Function):
+    """The compositor on the pre-aligned layout (bin_gaussians_aligned with
+    p_aligned(cfg)), the reference's composite_tiles_pallas_pre.
+
+    Forward: the nine attributes gathered by pair_gauss into
+    [ATTR_ROWS, P_al] (gap slots hold gaussian 0's, rows 9.. zero, as the
+    reference's), the forward compositor kernel, then + T * bg. Backward:
+    r0, the backward compositor's entry-major rows, a mask of the slots
+    that hold a pair (pair_valid, before the last tile's stop) applied by
+    select (unwritten slots may hold NaN), and index_add_ of the rows into
+    their gaussians by the int32 pair_gauss. The ids never ride an f32
+    row, so this path takes any N. Differentiable inputs: means2d, conic,
+    rgb, opac, background."""
+
+    @staticmethod
+    def forward(ctx, cfg, tile_start, tile_stop, pair_gauss, pair_valid,
+                means2d, conic, rgb, opac, background, row_offset=0):
+        p_al = pair_gauss.shape[0]
+        attr = means2d.new_zeros((pack.ATTR_ROWS, p_al))
+        attr[:pack.NUM_ATTR] = pack.gaussian_attrs(
+            means2d, conic, rgb, opac)[pair_gauss.to(torch.int64)].T
+        color, t, nc, kl = composite_t.composite_forward(
+            cfg, tile_start, tile_stop, attr, row_offset)
+        color = color + t[..., None] * background[None, None, :]
+        ctx.save_for_backward(tile_start, tile_stop, pair_gauss, pair_valid,
+                              attr, t, kl, background)
+        ctx.cfg, ctx.n, ctx.row_offset = cfg, means2d.shape[0], row_offset
+        ctx.mark_non_differentiable(nc)
+        return color, t, nc
+
+    @staticmethod
+    def backward(ctx, d_color, d_final_t, _d_nc):
+        (tile_start, tile_stop, pair_gauss, pair_valid, attr, final_t, kl,
+         bg) = ctx.saved_tensors
+        d_color = d_color.contiguous()
+        r0 = _r0(d_color, d_final_t, final_t, bg)
+        d_rows = composite_t.composite_backward(
+            ctx.cfg, tile_start, tile_stop, attr, d_color, r0,
+            final_t.contiguous(), kl, ctx.row_offset, transposed_out=False)
+        slots = torch.arange(d_rows.shape[0], device=d_rows.device)
+        acc = _scatter_rows(d_rows, pair_valid & (slots < tile_stop[-1]),
+                            pair_gauss.to(torch.int64), ctx.n)
+        d_means2d, d_conic, d_rgb, d_opac, d_bg = _param_grads(
+            acc, d_color, final_t)
+        return (None, None, None, None, None, d_means2d, d_conic, d_rgb,
+                d_opac, d_bg, None)

@@ -253,12 +253,13 @@ def _step_stats(diag: dict, mesh: Mesh, raster: RasterConfig, loss, l1):
 
 
 def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
-                         scene_extent: float):
+                         scene_extent: float, compositor: str = "auto"):
     """One distributed training step on this rank, trainer.make_train_step's
     contract on a shard: step(state, image, viewmat, intrinsics, step,
     sh_degree) -> (state, StepStats), the view being this rank's data
     row's. The exchange's slots per (source, destination):
-    cfg.dist_send_capacity when it is set, else the safe N/G."""
+    cfg.dist_send_capacity when it is set, else the safe N/G. compositor:
+    tile_shard.exchange_and_render_local's ("scan": the scan oracle)."""
     from tpugs_torch.train.trainer import (NOISE_STREAM, TrainState,
                                            _background, event_generator)
 
@@ -287,7 +288,7 @@ def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
             probe = torch.zeros((n_loc, 2), device=dev, requires_grad=True)
             proj = dataclasses.replace(proj, means2d=proj.means2d + probe)
         color_t, _, _, diag = exchange_and_render_local(
-            proj, raster, local_cfg, mesh, cap, background)
+            proj, raster, local_cfg, mesh, cap, background, compositor)
         color = assemble_image(raster, mesh, color_t)
         loss = combined_loss(color, image, cfg.lambda_ssim)
         if mcmc_mode:

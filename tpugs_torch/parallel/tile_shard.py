@@ -17,6 +17,9 @@ Per rank, per frame:
      the align-copy and forward compositor kernels, and in the backward
      the backward compositor with the sorted segment sum (or, from 2^24
      received records, the classic branch);
+     with compositor="scan", the reference's scan branch in place of 4-5:
+     the whole-capacity slice binning (binning.bin_gaussians) and the
+     scan compositor with its analytic backward, an oracle with no kernel;
   6. all_gather the colour tile rows, so every rank of the data row holds
      the whole image for the L1 + SSIM loss.
 
@@ -31,7 +34,8 @@ import torch
 from tpugs_torch.ops import binning as B
 from tpugs_torch.ops import composite as C
 from tpugs_torch.ops.projection import ProjectionOutput, project_gaussians
-from tpugs_torch.ops.rasterize_tiled import RasterConfig, tiles_to_image
+from tpugs_torch.ops.rasterize_tiled import (RasterConfig, composite_tiles,
+                                             tiles_to_image)
 from tpugs_torch.optim.adam import AdamConfig, adam_step
 from tpugs_torch.parallel import comm
 from tpugs_torch.parallel.mesh import Mesh
@@ -122,12 +126,18 @@ def build_send_index(d0, d1, g: int, capacity: int):
 def exchange_and_render_local(proj: ProjectionOutput, raster: RasterConfig,
                               local_cfg: RasterConfig, mesh: Mesh,
                               send_capacity: int, background,
+                              compositor: str = "auto",
                               need_grads: bool = True):
     """The tile-shard core on one rank: exchange the screen-space records
     with the ranks that own their tiles, bin and composite this rank's tile
     slice. Returns (color tiles [T_loc, PIX, 3], final_T, n_contrib, diag);
-    differentiable in proj's float fields. need_grads=False (forward-only
-    callers) builds no reduction metadata and no graph."""
+    differentiable in proj's float fields. compositor: "auto" or "kernel"
+    (the kernels, on both devices; the reference's "auto" takes the scan
+    off the TPU) or "scan" (the reference's scan branch; need_grads is
+    then ignored). need_grads=False (forward-only callers) builds no
+    reduction metadata and no graph."""
+    if compositor not in ("auto", "kernel", "scan"):
+        raise ValueError(f"unknown compositor {compositor!r}")
     g = mesh.gauss
     rpd = rows_per_device(raster, g)
     row_lo = mesh.gauss_index * rpd
@@ -144,10 +154,17 @@ def exchange_and_render_local(proj: ProjectionOutput, raster: RasterConfig,
     n_work = work.means2d.shape[0]
     reduce_meta = need_grads and C.segred_needs_meta(local_cfg, n_work)
     with torch.no_grad():
-        binning = B.bin_gaussians_expand_kernel(
-            work, raster.img_w, raster.img_h, raster.tile_w, raster.tile_h,
-            local_cfg.pair_capacity, presorted=True, reduce_meta=reduce_meta,
-            tile_row_lo=row_lo, num_tile_rows=rpd)
+        if compositor == "scan":
+            binning = B.bin_gaussians(
+                work, raster.img_w, raster.img_h, raster.tile_w,
+                raster.tile_h, local_cfg.pair_capacity, presorted=True,
+                tile_row_lo=row_lo, num_tile_rows=rpd)
+        else:
+            binning = B.bin_gaussians_expand_kernel(
+                work, raster.img_w, raster.img_h, raster.tile_w,
+                raster.tile_h, local_cfg.pair_capacity, presorted=True,
+                reduce_meta=reduce_meta, tile_row_lo=row_lo,
+                num_tile_rows=rpd)
         binning, max_tile_hits = B.clamp_tile_segments(
             binning, local_cfg.max_hits_per_tile)
     b = binning
@@ -155,7 +172,9 @@ def exchange_and_render_local(proj: ProjectionOutput, raster: RasterConfig,
                          device=work.means2d.device)
     args = (local_cfg, b.tile_start, b.tile_stop, b.pair_gauss,
             work.means2d, work.conic, work.rgb, work.opac, bg, row_lo)
-    if need_grads:
+    if compositor == "scan":
+        color_t, final_t, nc_t = composite_tiles(*args)
+    elif need_grads:
         meta = ((b.pair_tile, b.exp_slot, b.red_start, b.red_count,
                  b.exp_end) if reduce_meta else None)
         color_t, final_t, nc_t = C.CompositeSegred.apply(*args, meta, None)
@@ -195,6 +214,7 @@ def _local_view(images, viewmats, intrinsics, d: int):
 def make_tile_sharded_train_step(mesh: Mesh, raster: RasterConfig,
                                  adam_cfg: AdamConfig = AdamConfig(),
                                  lambda_ssim: float = 0.2, sh_degree: int = 0,
+                                 compositor: str = "auto",
                                  send_capacity: int | None = None,
                                  local_pair_capacity: int | None = None):
     """A train step with params, moments and tiles sharded over "gauss" and
@@ -204,9 +224,10 @@ def make_tile_sharded_train_step(mesh: Mesh, raster: RasterConfig,
               [1,4,4], intrinsics [1,4], step) -> (params, adam_state, loss)
 
     on each rank's shard (shard_gauss_state) and its data row's view
-    (sharded_train.shard_batch). send_capacity: exchange slots per
-    (source, destination), default N_loc (never overflows);
-    local_pair_capacity: default ceil(pair_capacity / G) x headroom."""
+    (sharded_train.shard_batch). compositor: exchange_and_render_local's.
+    send_capacity: exchange slots per (source, destination), default N_loc
+    (never overflows); local_pair_capacity: default ceil(pair_capacity / G)
+    x headroom."""
     g = mesh.gauss
     if local_pair_capacity is None:
         local_pair_capacity = default_local_pair_capacity(
@@ -223,7 +244,8 @@ def make_tile_sharded_train_step(mesh: Mesh, raster: RasterConfig,
                                  p["opacity_logits"], p["sh"], alive, viewmat,
                                  intr, raster.img_w, raster.img_h, sh_degree)
         color_t, _, _, _ = exchange_and_render_local(
-            proj, raster, local_cfg, mesh, cap, torch.zeros(3, device=image.device))
+            proj, raster, local_cfg, mesh, cap,
+            torch.zeros(3, device=image.device), compositor)
         color = assemble_image(raster, mesh, color_t)
         loss = combined_loss(color, image, lambda_ssim)
         names = list(p)
