@@ -120,6 +120,19 @@ a nonzero exit:
      against the kernel route on the card and the scan on the CPU, image
      and gradients, no kernel launched, timed; (d) the dense oracle on a
      300-gaussian 64x48 scene against the scan on the card;
+  11. bench (after phase train-step): tpugs_torch.bench (bench_torch.py)
+     at bench.py's two shapes, carry off: 489x272 with 50k gaussians (the
+     exact presort with the packed key) and the garden shape with 1M (the
+     2-key sort), measure_config's own clock, bench_torch.py's JSON line,
+     it/s, Mpix/s, pairs against the pair capacity and the busiest tile
+     against max hits; K1-K5 once per step and nothing else; K1-K5 held
+     against their plain versions on the 50k bench's step-0 inputs; the
+     50k shape again with carry on (K1b in K1's place, once per step; the
+     losses equal carry off's; K1b held against its plain version); the
+     50k bench's first 2 steps on the card and on the CPU (losses rtol
+     1e-4, params within steps x 2 x lr on >= 99.9% of elements); and the
+     device's busy share over one timed 50k round (torch.profiler) with the
+     host syncs of one step, printed only;
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -138,8 +151,8 @@ launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
 (the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
 anchor build and its drag, the mesh steps of (a) and of each rank of (b),
-the pre-aligned, fast-presort and scan frames of phase oracles among
-them),
+the pre-aligned, fast-presort and scan frames of phase oracles and the
+steps of phase bench's three runs among them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -1191,6 +1204,202 @@ def backward_kernel_rows(dev, a4, a5, sort_args, errs, where="train frame"):
           f"(torch.sort + column gather) {sort_ms:.4f} ms; index_add_ "
           f"{lib_ms:.4f} ms (max abs diff {lib_err:.3g})", flush=True)
     return rows
+
+
+BENCH_CPU_STEPS = 2  # the 50k bench's first steps, on the card and the CPU
+CARRY_PATH = ("expand_carry",) + SORTED_PATH[1:]
+
+
+@contextlib.contextmanager
+def bench_step_launches():
+    """While the block runs, tpugs_torch.bench's overflow check (the render
+    measure_config makes after its steps) first records the launches so
+    far, those of the steps alone, and then its own output."""
+    from tpugs_torch import bench
+
+    orig = bench.assert_no_overflow
+    seen = []
+
+    def check_frame(*args):
+        launches = read_launches()
+        seen.append((launches, orig(*args)))
+        return seen[-1][1]
+
+    bench.assert_no_overflow = check_frame
+    try:
+        yield seen
+    finally:
+        bench.assert_no_overflow = orig
+
+
+def bench_measure(dev, shape: dict, carry: bool, what: str, path):
+    """tpugs_torch.bench.measure_config at one of bench.py's shapes: every
+    step launches each kernel of `path` once and nothing else, the losses
+    and the rate are finite. Returns (its Measured, the steps' launches)."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch import bench
+
+    k, rounds = shape["k"], shape["rounds"]
+    steps = (rounds + 1) * k
+    torch.cuda.synchronize()
+    reset_launches()
+    with bench_step_launches() as seen:
+        m = bench.measure_config(**shape, device=dev, carry=carry)
+    launches = seen[0][0]
+    check_launches(launches, path, steps, f"{what} bench steps")
+    check(m.losses.shape == (steps,) and bool(np.isfinite(m.losses).all()),
+          f"{what} bench losses {m.losses}")
+    check(math.isfinite(m.mpix_s) and m.mpix_s > 0,
+          f"{what} bench: {m.mpix_s} Mpix/s")
+    print(f"bench {what} {shape['img_w']}x{shape['img_h']}, {shape['n']} "
+          f"gaussians{', carry on' if carry else ''}: {m.its:.4f} it/s, "
+          f"{m.mpix_s:.4f} Mpix/s ({1e3 / m.its:.3f} ms/step; {rounds} x "
+          f"{k} steps in {m.seconds:.4f} s); at the final params "
+          f"{m.num_pairs} pairs of capacity {shape['pair_capacity']} "
+          f"({m.num_pairs / shape['pair_capacity']:.4f}), busiest tile "
+          f"{m.max_tile_hits} of max hits {shape['max_hits']}; loss "
+          f"{m.losses[0]:.6f} -> {m.losses[-1]:.6f}", flush=True)
+    return m, launches
+
+
+def bench_50k_step(device):
+    """The 50k bench's step (tpugs_torch.bench.make_bench_step) on one
+    device, with its scene's parameters and a fresh Adam state."""
+    from tpugs_torch import bench
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+
+    s = bench.PRIMARY
+    w, h = s["img_w"], s["img_h"]
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=bench.TILE, tile_w=bench.TILE,
+                       pair_capacity=s["pair_capacity"],
+                       max_hits_per_tile=s["max_hits"])
+    params, alive, vm, intr, bg = bench.bench_scene(w, h, s["n"], None, device)
+    step = bench.make_bench_step(cfg, alive, vm, intr, bg,
+                                 bench.bench_target(w, h, device))
+    return step, params, adam_init(params)
+
+
+def bench_busy_share(dev):
+    """One timed 50k round (k steps and the host read of the last loss)
+    under torch.profiler, after a warm-up round: the device's busy share of
+    the round's wall time, the kernels and copies per step, and the host
+    syncs of one step. Printed, not gated."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpugs_torch import bench
+
+    k = bench.PRIMARY["k"]
+    step, params, adam = bench_50k_step(dev)
+    params, adam, losses = bench.run_k(step, params, adam, 0.0, k)
+    float(losses[-1])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        params, adam, losses = bench.run_k(step, params, adam, float(k), k)
+        float(losses[-1])
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in dev_events) / 1e3
+    launches = sum(e.count for e in dev_events) / k
+    top = sorted(dev_events, key=lambda e: getattr(e, attr), reverse=True)[:5]
+    step_t = torch.tensor(float(2 * k), device=dev)  # its copy: not the step's
+    syncs = sync_warnings(lambda: step(params, adam, step_t))
+    if busy_ms == 0:
+        print("bench 50k round: torch.profiler recorded no device time, so "
+              "its busy share is not measured", flush=True)
+    print(f"bench 50k round under torch.profiler: wall {wall_ms:.3f} ms for "
+          f"{k} steps, device busy {busy_ms:.3f} ms, busy share "
+          f"{busy_ms / wall_ms:.4f}, idle share {1 - busy_ms / wall_ms:.4f}; "
+          f"{launches:.1f} kernels and copies per step; top: "
+          + ", ".join(f"{e.key[:40]} {getattr(e, attr) / 1e3 / k:.4f} ms"
+                      for e in top)
+          + f"; host syncs in one step: {len(syncs)} "
+          f"({collections.Counter(syncs).most_common()})", flush=True)
+
+
+def phase_bench(dev, errs):
+    """tpugs_torch.bench (bench_torch.py) on the card: (a) bench.py's two
+    shapes, carry off, K1-K5 once per step; (b) K1-K5 held against their
+    plain versions on the 50k bench's step-0 inputs; (c) the 50k shape
+    with carry on, K1b in K1's place and the losses equal to (a)'s; (d) the
+    50k bench's first steps on the card against the CPU, by the Trainer's
+    parity rules; and the device's busy share over one timed 50k round.
+    Returns (the rows of (b) and (c), the launches of the three runs)."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch import bench
+    from tpugs_torch.ops import composite_t, expand, pack, segreduce
+    from tpugs_torch.optim.adam import AdamConfig, group_lrs
+
+    m50, l50 = bench_measure(dev, bench.PRIMARY, False, "50k", SORTED_PATH)
+    mg, lg = bench_measure(dev, bench.GARDEN, False, "garden", SORTED_PATH)
+    print("bench_torch.py line: " + json.dumps(bench.result_line(m50, mg)),
+          flush=True)
+
+    with capturing(expand, "expand_pairs", carry_mode) as k1b:
+        mc, lc = bench_measure(dev, bench.PRIMARY, True, "50k", CARRY_PATH)
+    diff = float(np.abs(mc.losses - m50.losses).max())
+    check(np.array_equal(mc.losses, m50.losses),
+          f"carried bench losses differ from carry off by up to {diff}")
+    with torch.no_grad():
+        rows = [expand_carry_row(dev, k1b[0], errs, "bench 50k carried frame")]
+    print(f"bench 50k carry on: the {mc.losses.shape[0]} losses equal carry "
+          f"off's; K1b once per step in K1's place, bit-identical to its "
+          f"plain version on step 0's inputs", flush=True)
+
+    with capturing(expand, "expand_pairs") as k1, \
+            capturing(pack, "align_copy") as k2, \
+            capturing(composite_t, "composite_forward") as k3, \
+            capturing(composite_t, "composite_backward") as k4, \
+            capturing(segreduce, "segment_sum_sorted") as k5, \
+            capturing(segreduce, "sort_by_key") as srt:
+        p_card, _, l_card = bench.run_k(*bench_50k_step(dev), 0.0,
+                                        BENCH_CPU_STEPS)
+    t0 = time.perf_counter()
+    p_cpu, _, l_cpu = bench.run_k(*bench_50k_step(torch.device("cpu")), 0.0,
+                                  BENCH_CPU_STEPS)
+    cpu_s = time.perf_counter() - t0
+    l_card, l_cpu = l_card.cpu().numpy(), l_cpu.numpy()
+    check(np.array_equal(l_card, m50.losses[:BENCH_CPU_STEPS]),
+          f"the bench's first steps again: losses {l_card} against "
+          f"{m50.losses[:BENCH_CPU_STEPS]}")
+    check(np.allclose(l_card, l_cpu, rtol=1e-4, atol=0),
+          f"bench losses card {l_card} against CPU {l_cpu}")
+    lrs = {k: float(v) for k, v in group_lrs(AdamConfig(), 0.0).items()}
+    close = {}
+    for name in NAMES:
+        a, b = p_card[name].cpu(), p_cpu[name]
+        check(bool(torch.isfinite(a).all()), f"bench {name} not finite")
+        tol = BENCH_CPU_STEPS * 2 * lrs[name] + 1e-6
+        close[name] = float(((a - b).abs() <= tol).float().mean())
+    check(min(close.values()) >= MIN_GRAD_MATCH,
+          f"bench params card against CPU: within steps x 2 x lr on only "
+          f"{close}")
+    print(f"bench 50k first {BENCH_CPU_STEPS} steps, card against CPU: "
+          f"losses {l_card.tolist()} / {l_cpu.tolist()} (max rel diff "
+          f"{float(np.max(np.abs(l_card - l_cpu) / np.abs(l_cpu))):.3g}), "
+          f"params within steps x 2 x lr on {min(close.values()):.6f} of "
+          f"elements (worst group); the CPU's steps took {cpu_s:.1f} s",
+          flush=True)
+    del p_card, p_cpu
+    with torch.no_grad():
+        rows += forward_kernel_rows(dev, k1[0], k2[0], k3[0], errs,
+                                    "bench 50k frame")
+        rows += backward_kernel_rows(dev, k4[0], k5[0], srt[0], errs,
+                                     "bench 50k frame")
+    bench_busy_share(dev)
+    return rows, {"bench_50k_steps": l50, "bench_garden_steps": lg,
+                  "bench_50k_carry_steps": lc}
 
 
 def garden_params(dev):
@@ -3104,6 +3313,9 @@ def main() -> int:
         with Phase("train-step", 600):
             rows, step_launches, _ = phase_train_step(dev, errs)
             print_rows(rows, "train frame")
+        with Phase("bench", 300):
+            bench_rows, bench_launches = phase_bench(dev, errs)
+            print_rows(bench_rows, "bench 50k frame")
         with Phase("garden-grad-paths", 300):
             classic_launches, scatter_launches = phase_garden_grad_paths(
                 dev, errs)
@@ -3147,7 +3359,7 @@ def main() -> int:
         "mesh_1x2_rank1_steps": rank1_launches,
         "pre_aligned_garden_frame": pre_launches,
         "fast_presort_render_frame": fast_launches,
-        "scan_frame": scan_launches})
+        "scan_frame": scan_launches, **bench_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "tpugs")
 
 
 def _port_sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "bench_torch.py"]
 
 
 def _modules():
@@ -57,9 +58,9 @@ def test_every_module_imports_with_jax_and_tpugs_blocked():
         "    sys.modules[m] = None\n"
         f"for m in {_modules()!r}:\n"
         "    importlib.import_module(m)\n"
-        f"py_compile.compile({str(ROOT / 'chip_smoke.py')!r}, doraise=True,\n"
-        "                   cfile=None)\n"
-        "import chip_smoke\n"
+        f"for f in {[str(ROOT / f) for f in ('chip_smoke.py', 'bench_torch.py')]!r}:\n"
+        "    py_compile.compile(f, doraise=True, cfile=None)\n"
+        "import chip_smoke, bench_torch\n"
         "print('ok')\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
