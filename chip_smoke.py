@@ -132,7 +132,24 @@ a nonzero exit:
      50k bench's first 2 steps on the card and on the CPU (losses rtol
      1e-4, params within steps x 2 x lr on >= 99.9% of elements); and the
      device's busy share over one timed 50k round (torch.profiler) with the
-     host syncs of one step, printed only;
+     host syncs of one step, printed only. Its runs go through run_k's
+     captured CUDA graph: a wrapper counts a kernel once at the capture
+     and not at a replay, so a graphed run's launches are its counts less
+     the captures plus the replays (`executed`), as in phases 5 and 6;
+  12. graph (after phase bench): the train step as a captured CUDA graph
+     (tpugs_torch/train/graph.py) at bench.py's two shapes. The Trainer's
+     ADC step (and the bench's bare step) eagerly under sync debug mode
+     "error"; make_train_multi_step's second block of 6 steps, all graph
+     replays, against 6 eager make_train_step calls from a copy of the
+     same state: losses and every tensor of the state bit-equal (ADC at
+     both shapes, MCMC at 50k: the graph's generator re-seeded per step
+     draws the eager step's noise), K1-K5 six times in the block's
+     profile (torch.profiler's kernel events), capture seconds, graph
+     pool bytes and peak memory, the block's and the eager steps' ms in
+     turns; the bench through the graph (measure_config) and through the
+     eager loop in turns, losses of every step bit-equal, Mpix/s of both;
+     the busy share of a profiled 50k round both ways; K1b in K1's place
+     in a carried graph round;
 Every kernel is timed twice (CUDA events, 10 launches): as the main path
 calls it, through its wrapper (`ms`), and alone, its C function launched
 again on the same checked inputs into the same outputs (`alone_ms`). The
@@ -151,8 +168,9 @@ launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
 (the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
 anchor build and its drag, the mesh steps of (a) and of each rank of (b),
-the pre-aligned, fast-presort and scan frames of phase oracles and the
-steps of phase bench's three runs among them),
+the pre-aligned, fast-presort and scan frames of phase oracles, the
+steps of phase bench's three runs and phase graph's profiled blocks and
+rounds among them),
 then the nvidia-smi line and, only when every phase passed,
 {"ok": true, "device": {...}} as the last line.
 """
@@ -181,10 +199,15 @@ MIN_GRAD_MATCH = 0.999  # per element: projection's ulps between devices can
 #                         move a rare rect or cull boundary, and with it one
 #                         gaussian's gradient
 
+# The small scenes' pair capacity (20k gaussians at 256x192: 79,769 pairs
+# at tiles of 16).
+SMALL_PAIR_CAPACITY = 1 << 17
 CLI_N = 1_000_000
 CLI_W, CLI_H = 1920, 1080
 CLI_FRAMES = 3
-CLI_PAIR_CAPACITY = 1 << 24  # the port sizes its pair arrays by the real count
+# The pair arrays are this long whatever the frame's count (static, as the
+# reference's): 2.7x the 1M scene's 1.54M pairs at frame 0.
+CLI_PAIR_CAPACITY = 1 << 22
 CLI_MAX_HITS = 1 << 20
 
 # The garden-30k training shape of bench.py's second configuration.
@@ -406,12 +429,33 @@ def _counter(name: str):
 
 
 def reset_launches():
+    from tpugs_torch.train.graph import BlockRunner
+
     for name in KERNELS:
         setattr(*_counter(name), 0)
+    BlockRunner.captures_total = BlockRunner.replays_total = 0
 
 
 def read_launches() -> dict:
     return {name: getattr(*_counter(name)) for name in KERNELS}
+
+
+def graph_totals() -> tuple:
+    """(captures, replays) of every CUDA graph runner since the last
+    reset_launches()."""
+    from tpugs_torch.train.graph import BlockRunner
+
+    return BlockRunner.captures_total, BlockRunner.replays_total
+
+
+def executed(launches: dict, path, captures: int, replays: int) -> dict:
+    """The kernels a graphed run ran: a wrapper counts each kernel of its
+    step once when a capture records it and never on a replay, and every
+    replay runs each kernel of `path` once (phase graph counts them in the
+    profiler's kernel events), so each kernel of `path` ran its count less
+    the captures plus the replays."""
+    return {k: v - captures + replays if k in path else v
+            for k, v in launches.items()}
 
 
 @contextlib.contextmanager
@@ -562,9 +606,10 @@ def phase_kernels(dev, errs):
     w, h = 256, 192
     proj = _scene(dev, 20_000, w, h, seed=0)
     for tile in (16, 32):
-        full = B.expand_inputs(proj, w, h, tile, tile, 1 << 24).total
-        for cap, qbits, presort in ((1 << 24, 0, False), (full // 2, 0, False),
-                                    (1 << 24, 32, False), (1 << 24, 0, True)):
+        full = int(B.expand_inputs(proj, w, h, tile, tile, 1 << 24).total)
+        # Capacities past the total (a sentinel tail) and below it.
+        for cap, qbits, presort in ((2 * full, 0, False), (full // 2, 0, False),
+                                    (2 * full, 32, False), (2 * full, 0, True)):
             pr = B.presort_by_depth(proj)[1] if presort else proj
             ex = B.expand_inputs(pr, w, h, tile, tile, cap, presort, qbits)
             args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
@@ -589,7 +634,8 @@ def phase_kernels(dev, errs):
                       "sorted pair_gauss differs")
         errs["expand"] = errs["expand_carry"] = 0.0
         cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
-                           pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
+                           pair_capacity=SMALL_PAIR_CAPACITY,
+                           max_hits_per_tile=1 << 20)
         b = B.bin_gaussians_expand_kernel(proj, w, h, tile, tile, cfg.pair_capacity)
         astart, astop, counts = pack.aligned_offsets(b.tile_start, b.tile_stop)
         pal = pack.aligned_length(astart, counts)
@@ -604,8 +650,9 @@ def phase_kernels(dev, errs):
         err, m_nc, m_kl = compare_compositor(got, ref)
         errs["composite_fwd"] = max(errs.get("composite_fwd", 0.0), err)
         torch.cuda.synchronize()
-        print(f"tile {tile}: {ex.total} pairs, expand (also in carry mode) + "
-              f"sort bit-identical (also at capacity {full // 2}), align-copy "
+        print(f"tile {tile}: {full} pairs, expand (also in carry mode) + "
+              f"sort bit-identical at capacities {2 * full} and {full // 2}, "
+              f"align-copy "
               f"bit-identical, "
               f"compositor max abs err {err:.3g}, n_contrib/k_last equal "
               f"{m_nc:.6f}/{m_kl:.6f}", flush=True)
@@ -660,7 +707,8 @@ def phase_grad_kernels(dev, errs):
     cpu = torch.device("cpu")
     for tile in (16, 32):
         cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
-                           pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
+                           pair_capacity=SMALL_PAIR_CAPACITY,
+                           max_hits_per_tile=1 << 20)
         grads = {}
         for d in (dev, cpu):
             tp = {k: v.requires_grad_(True)
@@ -921,14 +969,22 @@ def expand_slots(itab, p_out: int):
     return (torch.clamp(off + cnt, max=p_out) - off).clamp(min=0)
 
 
+def owned_slots(itab, p_out: int) -> int:
+    """The slots some gaussian owns, those the kernel writes: min(total,
+    p_out). The static p_out's other slots keep the wrapper's sentinel
+    fill."""
+    return int(expand_slots(itab, p_out).sum())
+
+
 def expand_bytes(itab, p_out: int, carry: bool) -> int:
     """The least bytes of K1 (carry: K1b): each gaussian's count, the other
     eight table words of each gaussian that owns a slot below p_out, and
-    12 bytes written per slot; carry mode adds 36 bytes per owning gaussian
-    and 36 per slot."""
+    12 bytes written per owned slot; carry mode adds 36 bytes per owning
+    gaussian and 36 per owned slot."""
     owners = int((expand_slots(itab, p_out) > 0).sum())
     per_owner, per_slot = (68, 48) if carry else (32, 12)
-    return 4 * itab.shape[1] + per_owner * owners + per_slot * p_out
+    return (4 * itab.shape[1] + per_owner * owners
+            + per_slot * owned_slots(itab, p_out))
 
 
 def step1_expand(itab, p_out: int, alone_ms: float, name: str, where: str):
@@ -942,6 +998,7 @@ def step1_expand(itab, p_out: int, alone_ms: float, name: str, where: str):
     n = itab.shape[1]
     zero = int((itab[1] <= 0).sum())
     owners = int((slots > 0).sum())
+    owned = int(slots.sum())
     iters = int(((slots + 31) // 32).sum())
     c = EXPAND_CHUNK[name]
     span = torch.nn.functional.pad(slots, (0, -n % c)).view(-1, c).sum(1)
@@ -949,10 +1006,11 @@ def step1_expand(itab, p_out: int, alone_ms: float, name: str, where: str):
     print(f"step1 {'K1b' if name == 'expand_carry' else 'K1'} {where}: "
           f"alone {alone_ms:.4f} ms; {n} gaussians, {zero / n:.6f} with "
           f"count 0 and {(n - zero - owners) / n:.6f} more with offset >= "
-          f"p_out ({owners} own a slot); {p_out} slots, per owning gaussian "
-          f"mean {p_out / max(owners, 1):.3f} max {int(slots.max())}; a warp "
-          f"per gaussian: {iters} slot-loop iterations, lane use "
-          f"{p_out / max(32 * iters, 1):.4f}; chunks of {c}: {span.shape[0]}, "
+          f"p_out ({owners} own a slot); {owned} owned slots of {p_out}, per "
+          f"owning gaussian mean {owned / max(owners, 1):.3f} max "
+          f"{int(slots.max())}; a warp per gaussian: {iters} slot-loop "
+          f"iterations, lane use {owned / max(32 * iters, 1):.4f}; chunks of "
+          f"{c}: {span.shape[0]}, "
           f"{busy.shape[0]} own a slot, span max {int(span.max())} mean "
           f"{float(busy.float().mean()) if busy.shape[0] else 0.0:.1f} "
           f"(over those)", flush=True)
@@ -979,7 +1037,7 @@ def forward_kernel_rows(dev, a1, a2, a3, errs, where: str):
     k_ms = cuda_ms(lambda: expand.expand_pairs(*a1))
     alone_ms = timed_alone(lambda: expand.expand_pairs(*a1))
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*a1), reps=3)
-    k1_ops = p_out * 16  # index math, clamp, cull per slot
+    k1_ops = owned_slots(itab, p_out) * 16  # index math, clamp, cull per slot
     rows = [Row("expand", k_ms, alone_ms, pl_ms,
                 expand_bytes(itab, p_out, False), k1_ops,
                 extra={"host_ms": host_ms(lambda: expand.expand_pairs(*a1))})]
@@ -1240,6 +1298,7 @@ def bench_measure(dev, shape: dict, carry: bool, what: str, path):
     import torch
 
     from tpugs_torch import bench
+    from tpugs_torch.train import graph
 
     k, rounds = shape["k"], shape["rounds"]
     steps = (rounds + 1) * k
@@ -1247,7 +1306,10 @@ def bench_measure(dev, shape: dict, carry: bool, what: str, path):
     reset_launches()
     with bench_step_launches() as seen:
         m = bench.measure_config(**shape, device=dev, carry=carry)
-    launches = seen[0][0]
+    check(m.captures == 1 and m.replays == steps - graph.WARMUP_STEPS,
+          f"{what} bench: {m.captures} captures, {m.replays} replays of "
+          f"{steps} steps")
+    launches = executed(seen[0][0], path, m.captures, m.replays)
     check_launches(launches, path, steps, f"{what} bench steps")
     check(m.losses.shape == (steps,) and bool(np.isfinite(m.losses).all()),
           f"{what} bench losses {m.losses}")
@@ -1260,11 +1322,13 @@ def bench_measure(dev, shape: dict, carry: bool, what: str, path):
           f"{m.num_pairs} pairs of capacity {shape['pair_capacity']} "
           f"({m.num_pairs / shape['pair_capacity']:.4f}), busiest tile "
           f"{m.max_tile_hits} of max hits {shape['max_hits']}; loss "
-          f"{m.losses[0]:.6f} -> {m.losses[-1]:.6f}", flush=True)
+          f"{m.losses[0]:.6f} -> {m.losses[-1]:.6f}; {m.replays} of the "
+          f"steps graph replays, the capture {m.capture_seconds:.3f} s",
+          flush=True)
     return m, launches
 
 
-def bench_50k_step(device):
+def bench_50k_step(device, carry: bool = False):
     """The 50k bench's step (tpugs_torch.bench.make_bench_step) on one
     device, with its scene's parameters and a fresh Adam state."""
     from tpugs_torch import bench
@@ -1278,7 +1342,7 @@ def bench_50k_step(device):
                        max_hits_per_tile=s["max_hits"])
     params, alive, vm, intr, bg = bench.bench_scene(w, h, s["n"], None, device)
     step = bench.make_bench_step(cfg, alive, vm, intr, bg,
-                                 bench.bench_target(w, h, device))
+                                 bench.bench_target(w, h, device), carry)
     return step, params, adam_init(params)
 
 
@@ -1400,6 +1464,296 @@ def phase_bench(dev, errs):
     bench_busy_share(dev)
     return rows, {"bench_50k_steps": l50, "bench_garden_steps": lg,
                   "bench_50k_carry_steps": lc}
+
+
+GRAPH_K = 6  # steps of each graphed block in phase graph
+
+
+def clone_state(state):
+    """A TrainState with copies of every tensor (a graphed multi-step's
+    state is its buffers, which its next block overwrites)."""
+    import dataclasses
+
+    from tpugs_torch.optim.adam import AdamState
+    from tpugs_torch.optim.densify_adc import ADCState
+
+    c = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return dataclasses.replace(
+        state, params=c(state.params), alive=state.alive.clone(),
+        adam=AdamState(m=c(state.adam.m), v=c(state.adam.v),
+                       count=state.adam.count.clone()),
+        adc=ADCState(*(getattr(state.adc, f).clone() for f in
+                       ("grad_accum", "grad_count", "max_radii"))),
+        key=state.key.copy())
+
+
+def state_diffs(a, b) -> list:
+    """The tensors of two TrainStates that are not bit-equal, by name."""
+    import torch
+
+    pairs = [(f"params/{k}", a.params[k], b.params[k]) for k in a.params]
+    pairs += [(f"adam_m/{k}", a.adam.m[k], b.adam.m[k]) for k in a.params]
+    pairs += [(f"adam_v/{k}", a.adam.v[k], b.adam.v[k]) for k in a.params]
+    pairs += [("adam_count", a.adam.count, b.adam.count),
+              ("alive", a.alive, b.alive)]
+    pairs += [(f"adc/{f}", getattr(a.adc, f), getattr(b.adc, f))
+              for f in ("grad_accum", "grad_count", "max_radii")]
+    out = [name for name, x, y in pairs if not torch.equal(x, y)]
+    if not (a.key == b.key).all():
+        out.append("key")
+    return out
+
+
+def pool_bytes(runner):
+    """Bytes of the device segments of a graph runner's memory pool (torch's
+    memory snapshot); None where the snapshot names no pools."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    pool = tuple(runner.pool)
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == pool)
+
+
+def port_kernel_counts(events) -> dict:
+    """The port's kernels among a profile's device events -> launches by
+    KERNELS name (K4 and K4b share a kernel: both count as composite_bwd)."""
+    out = collections.Counter()
+    names = (("align_copy_kernel", "align_copy"),
+             ("composite_fwd_kernel", "composite_fwd"),
+             ("composite_bwd_kernel", "composite_bwd"),
+             ("segreduce_sorted_kernel", "segreduce"),
+             ("segreduce_interval_kernel", "segreduce_interval"))
+    for e in events:
+        if "expand_kernel" in e.key:
+            out["expand_carry" if "<true>" in e.key else "expand"] += e.count
+        for frag, name in names:
+            if frag in e.key:
+                out[name] += e.count
+    return {name: out.get(name, 0) for name in KERNELS}
+
+
+def profiled(fn):
+    """fn() under torch.profiler, then a synchronise -> (its result, the
+    port's kernel launches among the device events, device busy ms, wall
+    ms, the device events)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        h0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - h0) * 1e3
+    events = prof.key_averages()
+    attr = ("self_device_time_total"
+            if hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    dev_events = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(getattr(e, attr) for e in dev_events) / 1e3
+    return out, port_kernel_counts(dev_events), busy_ms, wall_ms, dev_events
+
+
+def eager_run_k(train_step, params, adam_state, step0: float, k: int):
+    """The bench's k steps as an eager loop (the card path before the
+    graph): each step dispatched from the host."""
+    import torch
+
+    dev = params["means"].device
+    steps = step0 + torch.arange(k, dtype=torch.float32, device=dev)
+    losses = []
+    for i in range(k):
+        params, adam_state, loss = train_step(params, adam_state, steps[i])
+        losses.append(loss)
+    return params, adam_state, torch.stack(losses)
+
+
+def graph_block(dev, label, shape, mode, launches_by):
+    """The Trainer's multi-step (densify_mode `mode`) at a bench shape: (i)
+    one eager step under sync debug mode "error" (ADC); (ii) a block of
+    GRAPH_K steps replayed from the graph against GRAPH_K eager steps from
+    the same state, bit for bit; (iii) its kernels counted in the profile
+    of the block; (iv) capture seconds, pool bytes, peak memory. Returns
+    the numbers printed."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch import bench
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_multi_step,
+                                           make_train_step)
+
+    w, h, n = shape["img_w"], shape["img_h"], shape["n"]
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=bench.TILE,
+                       tile_w=bench.TILE, pair_capacity=shape["pair_capacity"],
+                       max_hits_per_tile=shape["max_hits"])
+    params, alive, vm, intr, _ = bench.bench_scene(
+        w, h, n, shape.get("scale_range"), dev)
+    target = bench.bench_target(w, h, dev)
+    tcfg = TrainConfig(densify_mode=mode)
+    state0 = TrainState(params=params, alive=alive, adam=adam_init(params),
+                        adc=adc_init(n, dev), key=initial_key(0))
+    step = make_train_step(tcfg, cfg, 1.0)
+    full = lambda v: torch.full((), float(v), device=dev)  # noqa: E731
+    if mode == "adc":
+        s1, _ = step(state0, target, vm, intr, full(0), 3)
+        torch.cuda.synchronize()
+        without_sync(lambda: step(s1, target, vm, intr, full(1), 3),
+                     f"the Trainer's ADC step at {label}")
+        del s1
+    multi = make_train_multi_step(tcfg, cfg, 1.0)
+    bank = (target[None], vm[None], intr[None])
+    vi = np.zeros(GRAPH_K, np.int64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    s1, l1, _ = multi(state0, *bank, vi, 0, 3)
+    float(l1[-1])
+    first_s = time.perf_counter() - t0
+    runner = multi.graphed[dev].runner
+    check(runner.captures == 1 and runner.replays == GRAPH_K - 2,
+          f"{label} {mode}: {runner.captures} captures, {runner.replays} "
+          f"replays in the first block")
+    ref = clone_state(s1)
+    (s2, l2, st2), counts, busy, wall, _ = profiled(
+        lambda: multi(s1, *bank, vi, GRAPH_K, 3))
+    launches_by[f"graph_{label}_{mode}_block"] = counts
+    check_launches(counts, SORTED_PATH, GRAPH_K,
+                   f"{label} {mode} replayed block steps (profiler)")
+    eager = []
+    for j in range(GRAPH_K):
+        ref, st = step(ref, target, vm, intr, full(GRAPH_K + j), 3)
+        eager.append(st.loss)
+    eager = torch.stack(eager)
+    diffs = state_diffs(s2, ref)
+    check(torch.equal(l2, eager) and not diffs,
+          f"{label} {mode}: the replayed block differs from the eager steps"
+          f" (losses max diff {float((l2 - eager).abs().max())}; tensors "
+          f"{diffs})")
+    check(bool(torch.isfinite(l2).all()) and not bool(st2.pair_overflow),
+          f"{label} {mode}: losses {l2.tolist()}, overflow")
+    # The block's time against the eager steps' in turns, host clock, one
+    # host read each.
+    times = {"graph": [], "eager": []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        s1, l1, _ = multi(s1, *bank, vi, 0, 3)
+        float(l1[-1])
+        times["graph"].append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+        st = ref
+        t0 = time.perf_counter()
+        for j in range(GRAPH_K):
+            st, stats = step(st, target, vm, intr, full(j), 3)
+        float(stats.loss)
+        times["eager"].append((time.perf_counter() - t0) * 1e3 / GRAPH_K)
+        del st, stats
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    pool = pool_bytes(runner)
+    print(f"graph {label} {mode} ({w}x{h}, {n} gaussians): first block "
+          f"{first_s:.3f} s (2 eager steps, capture "
+          f"{runner.capture_seconds[0]:.3f} s, {GRAPH_K - 2} replays); a "
+          f"replayed block of {GRAPH_K} bit-equal to {GRAPH_K} eager steps "
+          f"(losses {[round(x, 6) for x in l2.tolist()]}, every tensor of "
+          f"the state); its kernels by profiler {counts}; busy share of the "
+          f"profiled block {busy / wall:.4f} ({busy:.3f} of {wall:.3f} ms); "
+          f"ms per step graph {[round(x, 3) for x in times['graph']]}, eager "
+          f"{[round(x, 3) for x in times['eager']]}; graph pool {pool} B, "
+          f"peak allocated {peak:.3f} GiB", flush=True)
+    return {"capture_s": runner.capture_seconds[0], "pool_bytes": pool,
+            "peak_gib": peak, "busy_share": busy / wall,
+            "graph_ms": times["graph"], "eager_ms": times["eager"]}
+
+
+def bench_round_share(dev, run_k, carry=False):
+    """One timed 50k round (k steps and the host read of its last loss)
+    through `run_k` under torch.profiler, after a warm-up round -> (busy
+    share, busy ms, wall ms, the port's kernels counted)."""
+    from tpugs_torch import bench
+
+    k = bench.PRIMARY["k"]
+    step, params, adam = bench_50k_step(dev, carry)
+    params, adam, losses = run_k(step, params, adam, 0.0, k)
+    float(losses[-1])
+    _, counts, busy, wall, _ = profiled(
+        lambda: float(run_k(step, params, adam, float(k), k)[2][-1]))
+    return busy / wall, busy, wall, counts
+
+
+def phase_graph(dev):
+    """The train step as a captured CUDA graph (train/graph.py) at bench.py's
+    two shapes: graph_block's checks for the Trainer's ADC step at both and
+    its MCMC step at 50k (noise from the graph's generator); the bench's
+    bare step under sync debug mode "error"; the bench through the graph
+    (measure_config) and through the eager loop in turns, losses bit-equal,
+    Mpix/s of both; the busy share of a profiled 50k round both ways; K1b
+    in K1's place in a carried graph round (profiler). Returns the kernel
+    launches of its profiled blocks and rounds."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch import bench
+
+    launches_by = {}
+    out = {}
+    for label, shape in (("50k", bench.PRIMARY), ("garden", bench.GARDEN)):
+        for mode in (("adc", "mcmc") if label == "50k" else ("adc",)):
+            out[label, mode] = graph_block(dev, label, shape, mode,
+                                           launches_by)
+
+    step, params, adam = bench_50k_step(dev)
+    params, adam, losses = eager_run_k(step, params, adam, 0.0, 2)
+    float(losses[-1])
+    without_sync(lambda: step(params, adam, torch.full((), 2.0, device=dev)),
+                 "the bench's bare step")
+    del step, params, adam
+
+    rates = {}
+    for label, shape in (("50k", bench.PRIMARY), ("garden", bench.GARDEN)):
+        for way in ("graph", "eager", "graph", "eager"):
+            orig = bench.run_k
+            if way == "eager":
+                bench.run_k = eager_run_k
+            try:
+                m = bench.measure_config(**shape, device=dev, carry=False)
+            finally:
+                bench.run_k = orig
+            rates.setdefault((label, way), []).append(m)
+        g, e = rates[label, "graph"][0], rates[label, "eager"][0]
+        check(np.array_equal(g.losses, e.losses),
+              f"bench {label}: graph losses differ from the eager loop's by "
+              f"up to {float(np.abs(g.losses - e.losses).max())}")
+        print(f"bench {label} in turns (graph, eager, graph, eager), the "
+              f"losses of all {g.losses.shape[0]} steps bit-equal: Mpix/s "
+              f"graph {[round(m.mpix_s, 4) for m in rates[label, 'graph']]},"
+              f" eager {[round(m.mpix_s, 4) for m in rates[label, 'eager']]};"
+              f" it/s graph {[round(m.its, 2) for m in rates[label, 'graph']]}"
+              f", eager {[round(m.its, 2) for m in rates[label, 'eager']]}",
+              flush=True)
+
+    for way, run_k in (("graph", bench.run_k), ("eager", eager_run_k)):
+        share, busy, wall, counts = bench_round_share(dev, run_k)
+        if way == "graph":
+            launches_by["graph_bench_50k_round"] = counts
+            check_launches(counts, SORTED_PATH, bench.PRIMARY["k"],
+                           "graphed 50k round steps (profiler)")
+        print(f"bench 50k round ({way}) under torch.profiler: busy share "
+              f"{share:.4f} ({busy:.3f} of {wall:.3f} ms); kernels {counts}",
+              flush=True)
+    share, busy, wall, counts = bench_round_share(dev, bench.run_k, True)
+    launches_by["graph_bench_50k_carry_round"] = counts
+    check_launches(counts, CARRY_PATH, bench.PRIMARY["k"],
+                   "graphed carried 50k round steps (profiler)")
+    print(f"bench 50k carried round (graph): K1b in K1's place by profiler "
+          f"{counts}; busy share {share:.4f}", flush=True)
+    return launches_by
 
 
 def garden_params(dev):
@@ -1537,7 +1891,7 @@ def expand_carry_row(dev, args, errs, where: str):
     pl_ms = cuda_ms(lambda: expand.expand_pairs_plain(*args), reps=3)
     step1_expand(itab, p_out, alone_ms, "expand_carry", where)
     return Row("expand_carry", k_ms, alone_ms, pl_ms,
-               expand_bytes(itab, p_out, True), p_out * 16,
+               expand_bytes(itab, p_out, True), owned_slots(itab, p_out) * 16,
                extra={"host_ms": host_ms(lambda: expand.expand_pairs(*args))})
 
 
@@ -1718,7 +2072,8 @@ def large_expand(a1, errs):
               zip(expand.expand_pairs(*cut), got)),
           "the 2^24 frame's expansion cut to its first 1M gaussians differs")
     cut_ms = timed_alone(lambda: expand.expand_pairs(*cut))
-    bound_ms, bound_by = bound(expand_bytes(itab, p_out, False), p_out * 16)
+    bound_ms, bound_by = bound(expand_bytes(itab, p_out, False),
+                               owned_slots(itab, p_out) * 16)
     step1_expand(itab, p_out, alone_ms, "expand", "2^24 step 0")
     print(f"2^24 train frame expand: {k_ms:.4f} ms as called, "
           f"{alone_ms:.4f} ms alone, bound {bound_ms:.4f} ms ({bound_by}), "
@@ -1812,14 +2167,16 @@ def classic_kernel_rows(dev, a4b, a6, errs):
           f"99.9th pct {q[2]}, max {int(length.max())}; longer than "
           f"{longer}", flush=True)
     # Library yardsticks. torch.segment_reduce computes K6's function, zeros
-    # included, where the intervals partition [0, exp_end) (the main
-    # path's: binning.reduce_intervals); index_add_ by each row's gaussian
+    # included, where the intervals partition the owned slots [0, end),
+    # end = min(total, exp_end) (the main path's: binning.reduce_intervals;
+    # exp_end is the static capacity); index_add_ by each row's gaussian
     # adds the same rows but excludes zeroing its output and expanding the
     # gaussian ids, so it is printed beside it.
+    end = int(length.sum())
     contiguous = bool((red_start[1:] == red_start[:-1] + red_count[:-1]).all()) \
-        and int(red_start[0]) == 0 and int(length.sum()) == exp_end
-    check(contiguous, "the 2^24 step's intervals do not partition [0, exp_end)")
-    seg_rows = d_rows[:exp_end]
+        and int(red_start[0]) == 0 and end <= exp_end
+    check(contiguous, "the 2^24 step's intervals do not partition [0, end)")
+    seg_rows = d_rows[:end]
     seg = torch.segment_reduce(seg_rows, "sum", lengths=red_count, axis=0)
     seg_err = float((seg.T - got).abs().max())
     check(seg_err <= 1e-4 * float(got.abs().max()),
@@ -1902,9 +2259,12 @@ def phase_train_cli(tmp, dev):
     finally:
         init_mod.mean_knn_distance = knn
     cli_s = time.perf_counter() - t0
-    launches = read_launches()
+    captures, replays = graph_totals()
+    launches = executed(read_launches(), SORTED_PATH, captures, replays)
     text = log.getvalue()
     check(rc == 0, f"train CLI returned {rc}")
+    check(captures >= 1 and replays > 0,
+          f"train CLI: {captures} graph captures, {replays} replays")
     for line in text.splitlines():
         if "OVERFLOW" in line or line.startswith(("auto pair", "trained")):
             print(f"train cli: {line}", flush=True)
@@ -1932,7 +2292,8 @@ def phase_train_cli(tmp, dev):
           f"sparse points: {float(m.group(3)):.2f} it/s; losses "
           f"{[round(r['loss'], 5) for r in hist]}; seconds: dataset write "
           f"{write_s:.1f}, CLI {cli_s:.1f} = init {cli_s - steps_s:.1f} "
-          f"(kNN {sum(knn_s):.1f}) + steps {steps_s:.1f}; launches "
+          f"(kNN {sum(knn_s):.1f}) + steps {steps_s:.1f}; {replays} of the "
+          f"steps graph replays ({captures} captures); launches "
           f"{launches}", flush=True)
     return launches
 
@@ -2002,9 +2363,12 @@ def run_train_cli(tmp, ds, name: str, config: dict, steps: int, extra=()):
 
     def timed(tr, fn):
         def event(state, **kw):
+            # The state's tensors are the train graph's buffers, which the
+            # next block overwrites: keep a copy.
+            kept = (clone_state(state), kw)
             if rec["first"] is None:
-                rec["first"] = (state, kw)
-            rec["last"] = (state, kw)
+                rec["first"] = kept
+            rec["last"] = kept
             if tr.cfg.densify_mode == "adc":
                 rec["prune_causes"].append(prune_causes(tr, state))
             t0 = torch.cuda.Event(enable_timing=True)
@@ -2042,12 +2406,19 @@ def run_train_cli(tmp, ds, name: str, config: dict, steps: int, extra=()):
     log = io.StringIO()
     trainer_mod.Trainer = Recorded
     reset_launches()
+    dev = torch.device("cuda", 0)
+    torch.cuda.reset_peak_memory_stats(dev)
     try:
         with contextlib.redirect_stdout(log):
             rc = train_app.main(argv)
     finally:
         trainer_mod.Trainer = base
     launches = read_launches()
+    rec["graph"] = graph_totals()
+    runner = rec["trainer"]._multi_step.graphed[dev].runner
+    rec["capture_s"] = runner.capture_seconds
+    rec["pool_bytes"] = pool_bytes(runner)
+    rec["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     torch.cuda.synchronize()
     rec["events_ms"] = [a.elapsed_time(b) for a, b in pending]
     rec["prune_causes"] = [c.tolist() for c in rec["prune_causes"]]
@@ -2183,9 +2554,12 @@ def phase_train_densify(tmp, dev, card):
     renders = 2 * len(rec["evals"]) + eval_grows
     check_launches(eval_launches, ("expand", "align_copy", "composite_fwd"),
                    renders, "eval renders")
-    check_launches({k: adc_launches[k] - eval_launches[k]
-                    for k in adc_launches}, SORTED_PATH, ADC_STEPS,
-                   "ADC steps")
+    adc_launches = executed(
+        {k: adc_launches[k] - eval_launches[k] for k in adc_launches},
+        SORTED_PATH, *rec["graph"])
+    check_launches(adc_launches, SORTED_PATH, ADC_STEPS, "ADC steps")
+    adc_launches = {k: adc_launches[k] + eval_launches[k]
+                    for k in adc_launches}
     for res, _ in rec["evals"]:
         check(len(res.images) == 2 and all(
             math.isfinite(r.psnr) and math.isfinite(r.ssim)
@@ -2222,7 +2596,10 @@ def phase_train_densify(tmp, dev, card):
           f"{rec['prune_causes']}; ADC step ms at N "
           f"{rec['n0']} (before the first event) {step_ms[0]:.3f}, at N "
           f"{ev[-1][4]} (after the last) {step_ms[1]:.3f}; eval ms per view "
-          f"{[round(x, 3) for x in eval_ms]} ({eval_grows} regrows); sync "
+          f"{[round(x, 3) for x in eval_ms]} ({eval_grows} regrows); graph: "
+          f"{rec['graph'][1]} of the steps replays, {rec['graph'][0]} "
+          f"captures ({', '.join(f'{x:.3f}' for x in rec['capture_s'])} s), "
+          f"pool {rec['pool_bytes']} B, peak {rec['peak_gib']:.3f} GiB; sync "
           f"warnings: ADC step {len(syncs[0])}, none step {len(syncs[1])} "
           f"({syncs[1]}), densify event {len(event_syncs)}; losses {[round(x, 5) for x in rec['losses']]}; "
           f"launches {adc_launches} (eval {eval_launches})", flush=True)
@@ -2244,6 +2621,7 @@ def phase_train_densify(tmp, dev, card):
         check(e[3] == want and e[4] == n_alive + want,
               f"event {e}: grew {e[3]}, expected {want} of N {n_alive}")
         n_alive = e[4]
+    mcmc_launches = executed(mcmc_launches, SORTED_PATH, *rec["graph"])
     check_launches(mcmc_launches, SORTED_PATH, MCMC_STEPS, "MCMC steps")
     tr = rec["trainer"]
     # The first event, and the last (the first may find no dead gaussian).
@@ -2255,7 +2633,10 @@ def phase_train_densify(tmp, dev, card):
     print(f"MCMC train CLI ({card}): {rec['its']:.2f} it/s over "
           f"{MCMC_STEPS} steps; N {rec['n0']} -> {ev[-1][4]}; events {ev}; "
           f"relocate event ms at Nc {DENSIFY_CAPACITY} {rec['events_ms']} "
-          f"(mean {np.mean(rec['events_ms']):.3f}); relocate event syncs "
+          f"(mean {np.mean(rec['events_ms']):.3f}); graph: {rec['graph'][1]} "
+          f"of the steps replays, {rec['graph'][0]} captures, pool "
+          f"{rec['pool_bytes']} B, peak {rec['peak_gib']:.3f} GiB; relocate "
+          f"event syncs "
           f"{len(event_syncs)}; losses {[round(x, 5) for x in rec['losses']]}; "
           f"launches {mcmc_launches}", flush=True)
     return adc_launches, eval_launches, mcmc_launches
@@ -2800,7 +3181,8 @@ def _small_frame(p, dev, w, h, tile, compositor, target, dense=False):
     from tpugs_torch.utils.synthetic import synthetic_intrinsics_numpy
 
     cfg = RasterConfig(img_h=h, img_w=w, tile_h=tile, tile_w=tile,
-                       pair_capacity=1 << 24, max_hits_per_tile=1 << 20)
+                       pair_capacity=SMALL_PAIR_CAPACITY,
+                       max_hits_per_tile=1 << 20)
     tp = {k: v.requires_grad_(True) for k, v in params_from_numpy(p, dev).items()}
     n = tp["means"].shape[0]
     view = (torch.ones(n, dtype=torch.bool, device=dev),
@@ -3316,6 +3698,8 @@ def main() -> int:
         with Phase("bench", 300):
             bench_rows, bench_launches = phase_bench(dev, errs)
             print_rows(bench_rows, "bench 50k frame")
+        with Phase("graph", 300):
+            graph_launches = phase_graph(dev)
         with Phase("garden-grad-paths", 300):
             classic_launches, scatter_launches = phase_garden_grad_paths(
                 dev, errs)
@@ -3359,7 +3743,7 @@ def main() -> int:
         "mesh_1x2_rank1_steps": rank1_launches,
         "pre_aligned_garden_frame": pre_launches,
         "fast_presort_render_frame": fast_launches,
-        "scan_frame": scan_launches, **bench_launches})
+        "scan_frame": scan_launches, **bench_launches, **graph_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

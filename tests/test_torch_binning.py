@@ -53,7 +53,7 @@ def test_two_key_sort_bit_identical(w, h, tile, seed, cap, big):
     """The 2-key (tile, depth, gid) path; cap None = half the pairs, so the
     back half is dropped (overflow)."""
     jp, tp = _inputs(w, h, seed, big_rects=big)
-    total = TB.expand_inputs(tp, w, h, tile, tile, CAP).total
+    total = int(TB.expand_inputs(tp, w, h, tile, tile, CAP).total)
     overflow = cap is None
     cap = total // 2 if overflow else cap
     ref = JB.bin_gaussians_expand_kernel(jp, w, h, tile, tile, cap,
@@ -72,7 +72,8 @@ def test_two_key_sort_bit_identical(w, h, tile, seed, cap, big):
 @pytest.mark.parametrize("overflow", [False, True])
 def test_presorted_bit_identical(w, h, tile, overflow):
     jp, tp = _inputs(w, h, 1, big_rects=True)
-    cap = TB.expand_inputs(tp, w, h, tile, tile, CAP).total // 2 if overflow else CAP
+    total = int(TB.expand_inputs(tp, w, h, tile, tile, CAP).total)
+    cap = total // 2 if overflow else CAP
     perm_j, jps = JB.presort_by_depth(jp)
     perm_t, tps = TB.presort_by_depth(tp)
     np.testing.assert_array_equal(np_(perm_t), np_(perm_j))
@@ -211,20 +212,27 @@ def test_qkey_bins_match_reference_formula():
 
 def test_expand_plain_covers_every_slot_once():
     """Every slot below min(total, capacity) is owned by its gaussian, in
-    gaussian-major order; past the capacity the back pairs are dropped."""
+    gaussian-major order, and the static slots past the total hold the
+    sentinel (tile num_tiles, depth inf, gid 0); past the capacity the back
+    pairs are dropped."""
     w, h, tile = 96, 64, 16
     _, tp = _inputs(w, h, 6, big_rects=True)
     ex = TB.expand_inputs(tp, w, h, tile, tile, 1 << 20)
+    total = int(ex.total)
     tile_id, depth, gid = TEX.expand_pairs(ex.itab, ex.ftab, ex.p_out,
                                            ex.num_tiles, ex.ntx, tile, tile)
+    assert ex.p_out == 1 << 20 and gid.shape == (1 << 20,)
     counts = np_(ex.itab[1])
-    np.testing.assert_array_equal(np_(gid), np.repeat(np.arange(300), counts))
-    culled = np_(tile_id) == ex.num_tiles
-    assert np.isinf(np_(depth)[culled]).all() and culled.any()
-    small = TB.expand_inputs(tp, w, h, tile, tile, ex.total // 3)
+    np.testing.assert_array_equal(np_(gid)[:total],
+                                  np.repeat(np.arange(300), counts))
+    culled = np_(tile_id)[:total] == ex.num_tiles
+    assert np.isinf(np_(depth)[:total][culled]).all() and culled.any()
+    assert (np_(tile_id)[total:] == ex.num_tiles).all()
+    assert np.isinf(np_(depth)[total:]).all() and not np_(gid)[total:].any()
+    small = TB.expand_inputs(tp, w, h, tile, tile, total // 3)
     t2, _, g2 = TEX.expand_pairs(small.itab, small.ftab, small.p_out,
                                  small.num_tiles, small.ntx, tile, tile)
-    assert small.p_out == ex.total // 3
+    assert small.p_out == total // 3 and int(small.total) == total
     np.testing.assert_array_equal(np_(g2), np_(gid)[: small.p_out])
     np.testing.assert_array_equal(np_(t2), np_(tile_id)[: small.p_out])
 
@@ -314,7 +322,7 @@ def test_expand_edges_match_pallas(monkeypatch, scene):
                                            carry_attrs=True)
     ref = outs[0]
     ex = TB.expand_inputs(tp, w, h, tile, tile, cap, presorted)
-    assert ex.p_out == min(full.total, cap)
+    assert ex.p_out == cap and int(ex.total) == int(full.total)
     args = (ex.itab, ex.ftab, ex.p_out, ex.num_tiles, ex.ntx, tile, tile)
     atab = TP.gaussian_attrs(tp.means2d, tp.conic, tp.rgb, tp.opac).T.contiguous()
     four = TEX.expand_pairs_plain(*args)

@@ -133,7 +133,7 @@ EXPAND_EDGES = {
 
 @pytest.mark.parametrize("case", [
     (16, 0, False, 1.0), (32, 0, False, 0.5), (16, 32, False, 1.0), (32, 0, True, 1.0),
-    *EXPAND_EDGES])
+    (16, 0, False, 1.5), *EXPAND_EDGES])
 def test_expand_kernel_bit_identical(dev, case):
     """K1 against its plain version: frames at tiles of 16 and 32 (tile,
     qbits, presorted, capacity fraction) and the kernel's edges."""
@@ -722,7 +722,8 @@ def test_interval_sum_kernel_bit_identical(dev, n, span, empty, offset):
     np.testing.assert_allclose(np_(got), ref.numpy(), rtol=1e-5, atol=1e-4)
 
 
-@pytest.mark.parametrize("case", [(16, 1.0), (32, 0.5), *EXPAND_EDGES])
+@pytest.mark.parametrize("case", [(16, 1.0), (32, 0.5), (16, 1.5),
+                                  *EXPAND_EDGES])
 def test_expand_carry_kernel_bit_identical(dev, case):
     """K1b: the expand kernel in carry mode against its plain version, on
     frames at tiles of 16 and 32 (tile, capacity fraction) and the kernel's
@@ -903,3 +904,46 @@ def test_trainer_evaluate_on_card_matches_cpu(dev, tmp_path):
     assert len(a.images) == 2 and 5.0 < b.mean_psnr < 100.0
     assert abs(a.mean_psnr - b.mean_psnr) <= 1e-2
     assert abs(a.mean_ssim - b.mean_ssim) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["adc", "mcmc"])
+def test_graphed_multi_step_equals_eager_steps(dev, mode):
+    """make_train_multi_step on the card (the step captured as a CUDA graph
+    after two eager steps, then replayed) against make_train_step called
+    step by step from the same state: two blocks, losses and every tensor
+    of the state bit-equal; MCMC's noise drawn alike."""
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_multi_step,
+                                           make_train_step)
+
+    w, h, n, k = 192, 128, 2000, 5
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=16, tile_w=16,
+                       pair_capacity=1 << 16, max_hits_per_tile=2048)
+    p = params_from_numpy(synthetic_params_numpy(n, seed=1), dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    state = TrainState(params=p, alive=alive, adam=adam_init(p),
+                       adc=adc_init(n, dev), key=initial_key(7))
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.random((3, h, w, 3), dtype=np.float32)).to(dev)
+    vms = torch.eye(4, device=dev).expand(3, 4, 4).contiguous()
+    intr = torch.as_tensor(synthetic_intrinsics_numpy(w, h),
+                           device=dev).expand(3, 4).contiguous()
+    tcfg = TrainConfig(densify_mode=mode)
+    multi = make_train_multi_step(tcfg, cfg, 1.0)
+    step = make_train_step(tcfg, cfg, 1.0)
+    ref = state
+    for block in range(2):
+        vi = rng.integers(0, 3, k)
+        state, losses, _ = multi(state, bank, vms, intr, vi, block * k, 3)
+        for j, v in enumerate(vi):
+            ref, st = step(ref, bank[v], vms[v], intr[v],
+                           torch.full((), float(block * k + j), device=dev), 3)
+            assert torch.equal(losses[j], st.loss), (block, j)
+    for name in NAMES:
+        assert torch.equal(state.params[name], ref.params[name]), name
+        assert torch.equal(state.adam.v[name], ref.adam.v[name]), name
+    assert torch.equal(state.adc.grad_accum, ref.adc.grad_accum)
+    runner = multi.graphed[dev].runner
+    assert runner.captures == 1 and runner.replays == 2 * k - 2

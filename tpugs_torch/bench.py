@@ -24,10 +24,12 @@ and the CPU see the same target.
 The clock is bench.py's: one warm-up run of k steps (which also builds the
 kernel library at first use), then `rounds` runs of k steps back to back,
 each ending on one host read of its last loss, timed by time.perf_counter()
-around the rounds. Each step is dispatched from the host and waits for the
-device where it reads a count back (pair totals, aligned lengths) or
-copies a small tensor from the host, so the k steps are not one device
-program; that time is counted, as a user pays it.
+around the rounds. On the card a run of k steps is replays of the bare
+step captured as one CUDA graph (tpugs_torch/train/graph.py; the warm-up
+run's first two steps run eagerly before the capture), with its schedule
+steps staged on the device by one copy, so nothing inside a run waits on
+the host: the clock counts what bench.py's counts, device time, with the
+host only at the run's end.
 
 Knobs, read as bench.py reads them: TPUGS_TRAIN_CARRY=1 carries the
 compositor attributes through the pair sort (the expand kernel's carry
@@ -48,7 +50,8 @@ import torch
 
 from tpugs_torch.device import resolve_device
 from tpugs_torch.ops.render import RasterConfig, render
-from tpugs_torch.optim.adam import AdamConfig, adam_init, adam_step
+from tpugs_torch.optim.adam import AdamConfig, AdamState, adam_init, adam_step
+from tpugs_torch.train import graph
 from tpugs_torch.train.loss import combined_loss
 from tpugs_torch.utils.synthetic import synthetic_intrinsics, synthetic_params
 
@@ -73,6 +76,9 @@ class Measured:
     losses: np.ndarray  # [(rounds + 1) k]: every step's loss, warm-up first
     num_pairs: int  # at the final parameters
     max_tile_hits: int  # the busiest tile's entries there
+    captures: int = 0  # graph captures (the card), each once per kernel
+    replays: int = 0  # steps run as graph replays
+    capture_seconds: float = 0.0
 
 
 def bench_scene(img_w: int, img_h: int, n: int, scale_range=None,
@@ -98,7 +104,9 @@ def bench_target(img_w: int, img_h: int, device="cpu") -> torch.Tensor:
 def make_bench_step(cfg: RasterConfig, alive, viewmat, intrinsics,
                     background, target, carry: bool = False):
     """bench.py's train_step: (params, adam_state, step) -> (params,
-    adam_state, loss), the loss a detached scalar tensor."""
+    adam_state, loss), the loss a detached scalar tensor; `step` a float32
+    scalar tensor on the params' device. Its `graphed` dict holds run_k's
+    graphs per device."""
     adam_cfg = AdamConfig()
 
     def train_step(params, adam_state, step):
@@ -112,13 +120,68 @@ def make_bench_step(cfg: RasterConfig, alive, viewmat, intrinsics,
                                            dict(zip(NAMES, grads)), step)
         return params, adam_state, loss.detach()
 
+    train_step.graphed = {}
     return train_step
+
+
+class _GraphedSteps:
+    """run_k's card path: the bare step over static params and Adam
+    buffers, its schedule step a staged row (graph.BlockRunner)."""
+
+    def __init__(self, train_step, device):
+        self.train_step = train_step
+        self.runner = graph.BlockRunner(device, 1)
+        self.params = self.adam = None
+
+    @staticmethod
+    def _tensors(params, adam_state) -> list:
+        return ([params[k] for k in NAMES] + [adam_state.m[k] for k in NAMES]
+                + [adam_state.v[k] for k in NAMES] + [adam_state.count])
+
+    def _adopt(self, params, adam_state):
+        new = self._tensors(params, adam_state)
+        if self.params is None or not graph.same_layout(
+                new, self._tensors(self.params, self.adam)):
+            self.runner.release()
+            c = lambda d: {k: torch.empty_like(d[k]) for k in NAMES}  # noqa: E731
+            self.params = c(params)
+            self.adam = AdamState(m=c(adam_state.m), v=c(adam_state.v),
+                                  count=torch.empty_like(adam_state.count))
+        graph.load_buffers(self._tensors(self.params, self.adam), new)
+
+    def body(self):
+        params, adam, loss = self.train_step(self.params, self.adam,
+                                             self.runner.row()[0])
+        with torch.no_grad():
+            for k in NAMES:
+                self.params[k].copy_(params[k])
+                self.adam.m[k].copy_(adam.m[k])
+                self.adam.v[k].copy_(adam.v[k])
+            self.adam.count.copy_(adam.count)
+            self.runner.put_loss(loss)
+            self.runner.advance()
+
+    def __call__(self, params, adam_state, step0: float, k: int):
+        self._adopt(params, adam_state)
+        steps = np.float32(step0) + np.arange(k, dtype=np.float32)
+        self.runner.stage(steps[:, None])
+        self.runner.run(0, k, self.body)
+        adam = AdamState(m=dict(self.adam.m), v=dict(self.adam.v),
+                         count=self.adam.count)
+        return dict(self.params), adam, self.runner.losses[:k].clone()
 
 
 def run_k(train_step, params, adam_state, step0: float, k: int):
     """k steps at the schedule steps step0 + arange(k) (float32, as bench.py
-    feeds Adam); returns (params, adam_state, the k losses [k])."""
+    feeds Adam); returns (params, adam_state, the k losses [k]). On the card
+    the steps are replays of the step captured as a CUDA graph: params and
+    adam_state come back as the graph's static buffers, which the next call
+    updates in place. On the CPU they run eagerly."""
     dev = params["means"].device
+    if dev.type == "cuda":
+        if dev not in train_step.graphed:
+            train_step.graphed[dev] = _GraphedSteps(train_step, dev)
+        return train_step.graphed[dev](params, adam_state, step0, k)
     steps = step0 + torch.arange(k, dtype=torch.float32, device=dev)
     losses = []
     for i in range(k):
@@ -180,10 +243,15 @@ def measure_config(img_w, img_h, n, pair_capacity, max_hits,
     # Checked on the final (most drifted) parameters.
     out = assert_no_overflow(cfg, params, alive, viewmat, intr, bg)
     its = rounds * k / dt
+    g = train_step.graphed.get(dev)
     return Measured(mpix_s=its * img_w * img_h / 1e6, its=its, seconds=dt,
                     losses=torch.cat(history).cpu().numpy(),
                     num_pairs=int(out.num_pairs),
-                    max_tile_hits=int(out.max_tile_hits))
+                    max_tile_hits=int(out.max_tile_hits),
+                    captures=g.runner.captures if g else 0,
+                    replays=g.runner.replays if g else 0,
+                    capture_seconds=(sum(g.runner.capture_seconds) if g
+                                     else 0.0))
 
 
 # bench.py's two shapes. Primary: the reference benchmark's view (Truck at

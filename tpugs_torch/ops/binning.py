@@ -11,9 +11,11 @@ its sort to XLA. The three sorts of the reference's kernel path:
   tie-break.
 
 tile_start/tile_stop come from a binary search of the sorted keys.
-Unlike the reference, the pair arrays are as long as the pairs that survive
-the capacity, min(total, pair_capacity), not a fixed padded length: that
-costs one host read of the total per frame.
+Every size is static, as the reference's: the expansion has pair_capacity
+slots, those past the true total hold the sentinel tile num_tiles and sort
+after every real pair, and the total, num_pairs and the overflow flag stay
+on the device. Binning reads nothing back to the host, so a train step can
+run as a captured CUDA graph.
 
 Two options of the reference's kernel path:
 
@@ -21,9 +23,10 @@ Two options of the reference's kernel path:
   [P] is each sorted pair's expansion slot (the sort's permutation, in all
   three sorts); gaussian g's slots are [red_start[g], red_start[g] +
   red_count[g]) and every interval ends by exp_end. The port's expansion
-  has no per-chunk padding, so these are the clipped offsets and counts
-  with exp_end = min(total, pair_capacity), where the reference's are chunk
-  positions; both truncate at the pair capacity.
+  has no per-chunk padding, so these are the offsets and counts clipped to
+  the pair capacity, with exp_end = pair_capacity (the static slot count),
+  where the reference's are chunk positions; both truncate at the pair
+  capacity.
 - carry_attrs: the expand kernel's carry mode writes the nine compositor
   attributes per slot and the sort's permutation carries them into attr_c
   [11, P] (x y ca cb cc op r g b gid valid, pack.pack_compact_attrs'
@@ -59,14 +62,16 @@ class BinningResult:
                     which sort to the back)
     tile_start [T]  start of each tile's run in the sorted list (int32)
     tile_stop  [T]  end of the run, exclusive (int32)
-    num_pairs  []   true total pair count (may exceed the capacity)
+    num_pairs  []   true total pair count (may exceed the capacity), int64
     overflow   []   bool: the total exceeded the capacity (pairs dropped)
+    P is the static slot count, the pair capacity: the real pairs come
+    first, in tile order, then every slot of the sentinel tile.
 
     With reduce_meta (else None):
     exp_slot   [P]  int32 expansion slot of each sorted pair
     red_start  [N]  int32 first expansion slot of each gaussian
     red_count  [N]  int32 its slots inside the capacity
-    exp_end    int  end of the expansion's slots, min(total, capacity)
+    exp_end    int  end of the expansion's slots: the pair capacity
     With carry_attrs (else None):
     attr_c     [11, P] f32 sorted attributes x y ca cb cc op r g b gid valid
     """
@@ -194,14 +199,15 @@ def _depth_order_bits(depth: torch.Tensor) -> torch.Tensor:
 
 
 def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
-               num_tiles: int, n: int, total: int, pair_capacity: int,
+               num_tiles: int, n: int, total, pair_capacity: int,
                presorted: bool = False, qbits: int = 0,
                reduce_meta: bool = False,
                attrs: torch.Tensor | None = None) -> BinningResult:
     """Sort expanded (tile, depth, gid) slots into per-tile runs. `depth` is
     the quantized bin when qbits > 0 and unused when presorted.
     reduce_meta keeps the sort's permutation as exp_slot; attrs [9, P] (the
-    expand kernel's carry mode) go through it into attr_c."""
+    expand kernel's carry mode) go through it into attr_c. total: the true
+    pair count, a [] tensor on the device (or a number)."""
     dev = tile.device
     tile64 = tile.to(torch.int64)
     if presorted:
@@ -225,6 +231,7 @@ def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
     tile_stop = torch.searchsorted(skey, bounds + (1 << shift)).to(torch.int32)
     sorted_tile = torch.clamp(skey >> shift, max=num_tiles).to(torch.int32)
     pair_gauss = sorted_g.to(torch.int32)
+    num_pairs = torch.as_tensor(total, dtype=torch.int64, device=dev)
     attr_c = None
     if attrs is not None:
         attr_c = torch.cat([attrs[:, order], pair_gauss.to(torch.float32)[None],
@@ -234,8 +241,8 @@ def sort_pairs(tile: torch.Tensor, depth: torch.Tensor, gid: torch.Tensor,
         pair_tile=sorted_tile,
         tile_start=tile_start,
         tile_stop=tile_stop,
-        num_pairs=torch.tensor(total, dtype=torch.int64, device=dev),
-        overflow=torch.tensor(total > pair_capacity, device=dev),
+        num_pairs=num_pairs,
+        overflow=num_pairs > pair_capacity,
         exp_slot=order.to(torch.int32) if reduce_meta else None,
         attr_c=attr_c,
     )
@@ -255,7 +262,8 @@ def _expand_whole(proj: ProjectionOutput, img_w: int, img_h: int,
     """The reference's whole-capacity expansion: pair_capacity slots, each
     owned by the gaussian a marker histogram + cumsum gives it, culled at
     its tile's nearest pixel. -> (tile id [P] (num_tiles where invalid),
-    depth [P] (inf where invalid), owner [P] int64, num_tiles, n, total)."""
+    depth [P] (inf where invalid), owner [P] int64, num_tiles, n, total
+    [] int64)."""
     ntx = -(-img_w // tile_w)
     nty = -(-img_h // tile_h)
     if num_tile_rows <= 0:
@@ -269,14 +277,14 @@ def _expand_whole(proj: ProjectionOutput, img_w: int, img_h: int,
     counts = (w_tiles * h_tiles).to(torch.int64)
     offsets = torch.cumsum(counts, 0) - counts
     n = counts.shape[0]
-    total = int(counts.sum())
+    total = counts.sum()
 
     slots = torch.arange(pair_capacity, dtype=torch.int64, device=dev)
     keep = offsets < pair_capacity
     ind = torch.zeros(pair_capacity, dtype=torch.int64, device=dev)
     ind.index_add_(0, offsets[keep], torch.ones_like(offsets[keep]))
     g = torch.clamp(torch.cumsum(ind, 0) - 1, 0, n - 1)
-    in_range = slots < min(total, pair_capacity)
+    in_range = slots < torch.clamp(total, max=pair_capacity)
 
     local = slots - offsets[g]
     w_g = torch.clamp(w_tiles.to(torch.int64)[g], min=1)
@@ -380,8 +388,8 @@ class ExpandInputs:
 
     itab: torch.Tensor  # int32 [5, N]
     ftab: torch.Tensor  # f32 [4, N]
-    p_out: int  # min(total, pair_capacity)
-    total: int  # true pair count
+    p_out: int  # the static slot count: pair_capacity
+    total: torch.Tensor  # [] int64 on the device: the true pair count
     num_tiles: int  # the kernel's sentinel: the whole grid's tile count
     ntx: int
     qbits: int  # depth-key bits of the qkey sort, 0 otherwise
@@ -397,7 +405,12 @@ def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
     its linear bin over the visible depth range, as the reference's qkey
     path does, capped at 22 bits and at what the tile ids leave of 32.
     num_tile_rows > 0 clips the rects to that slice of tile rows; the
-    kernel's tile ids stay global."""
+    kernel's tile ids stay global. The offsets are clipped to the pair
+    capacity, which bounds every slot index (int32), so nothing is read
+    back to the host; the total stays on the device."""
+    if not 0 <= pair_capacity < 2**31:
+        raise ValueError(f"pair capacity {pair_capacity}: past the int32 "
+                         f"slot range")
     ntx = -(-img_w // tile_w)
     nty = -(-img_h // tile_h)
     num_tiles = ntx * nty
@@ -408,9 +421,8 @@ def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
         ty0, h_tiles = _clip_rows(ty0, h_tiles, tile_row_lo, num_tile_rows)
     counts = w_tiles * h_tiles
     offsets64 = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-    total = int(offsets64[-1] + counts[-1]) if counts.shape[0] else 0
-    if total >= 2**31:
-        raise ValueError(f"{total} pairs: past the int32 slot range")
+    total = (offsets64[-1] + counts[-1] if counts.shape[0] else
+             torch.zeros((), dtype=torch.int64, device=counts.device))
     qbits = 0
     if quant_key_bits > 0 and not presorted:
         local_tiles = ntx * num_tile_rows if num_tile_rows > 0 else num_tiles
@@ -427,18 +439,20 @@ def expand_inputs(proj: ProjectionOutput, img_w: int, img_h: int,
         scale = torch.div(torch.full_like(dmin, nbins - 1),
                           torch.clamp(dmax - dmin, min=1e-12))
         depth_row = torch.floor(torch.clamp((d - dmin) * scale, 0, nbins - 1))
-    itab = torch.stack([offsets64.to(torch.int32), counts, tx0, ty0,
+    # A gaussian whose offset is at or past the capacity owns no slot, as
+    # before the clip.
+    offsets = torch.clamp(offsets64, max=pair_capacity).to(torch.int32)
+    itab = torch.stack([offsets, counts, tx0, ty0,
                         torch.clamp(w_tiles, min=1)]).contiguous()
     ftab = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], r2_cull,
                         depth_row]).to(torch.float32).contiguous()
-    return ExpandInputs(itab=itab, ftab=ftab,
-                        p_out=min(total, pair_capacity), total=total,
-                        num_tiles=num_tiles, ntx=ntx, qbits=qbits)
+    return ExpandInputs(itab=itab, ftab=ftab, p_out=pair_capacity,
+                        total=total, num_tiles=num_tiles, ntx=ntx, qbits=qbits)
 
 
 def reduce_intervals(itab: torch.Tensor, p_out: int):
-    """Each gaussian's expansion interval clipped to the p_out slots that
-    survive the capacity -> (red_start, red_count) int32 [N]."""
+    """Each gaussian's expansion interval clipped to the p_out slots (the
+    pair capacity) -> (red_start, red_count) int32 [N]."""
     off, cnt = itab[0].to(torch.int64), itab[1].to(torch.int64)
     lo = torch.clamp(off, max=p_out)
     hi = torch.clamp(off + cnt, max=p_out)

@@ -40,12 +40,12 @@ from __future__ import annotations
 
 import torch
 
+from tpugs_torch.device import device_constant
 from tpugs_torch.ops import composite_t
 from tpugs_torch.ops import pack
 from tpugs_torch.ops import segreduce
 from tpugs_torch.ops.rasterize_tiled import RasterConfig
 
-CONIC_SCALE = (-0.5, -1.0, -0.5)  # pack_compact_attrs' conic pre-scale
 # Aligned-slot count from which the segment-sum backward takes the sorted
 # branch; below it, the classic one. 0, as the reference's default
 # (tpugs/ops/pallas/composite.py::_SORTED_SEGRED_MIN): the classic branch
@@ -68,15 +68,17 @@ def _forward(cfg: RasterConfig, tile_start, tile_stop, pair_gauss, means2d,
     k_last, astart, astop, aligned attributes). attr_c [11, P]: the sorted
     attributes carried by binning (carry_attrs), in place of the pack."""
     astart, astop, counts = pack.aligned_offsets(tile_start, tile_stop)
-    p_aligned = pack.aligned_length(astart, counts)
+    # The aligned table is as long as the static bound for binning's slots
+    # (the pair capacity), so its length needs no host read; the columns
+    # past the last tile's padded end stay zero.
+    slots = pair_gauss.shape[0]
+    p_aligned = pack.p_aligned_chunked(slots, cfg.num_tiles)
     if attr_c is not None:
         attr_c = torch.cat([attr_c, attr_c.new_zeros(
             (pack.ATTR_ROWS - attr_c.shape[0], attr_c.shape[1]))])
     else:
-        # Valid pairs occupy the first min(num_pairs, capacity) sorted slots.
-        pg = pair_gauss[: min(pair_gauss.shape[0], cfg.pair_capacity)]
-        attr_c = pack.pack_compact_attrs(pg, means2d, conic, rgb, opac,
-                                         pg.shape[0])
+        attr_c = pack.pack_compact_attrs(pair_gauss, means2d, conic, rgb,
+                                         opac, slots)
     attr = pack.align_copy(attr_c, tile_start, astart, counts, p_aligned)
     color, t, nc, kl = composite_t.composite_forward(cfg, astart, astop, attr,
                                                      row_offset)
@@ -107,7 +109,7 @@ def _pair_mask(attr: torch.Tensor, astop: torch.Tensor) -> torch.Tensor:
 def _param_grads(acc: torch.Tensor, d_color, final_t):
     """Per-gaussian sums [n, NUM_ATTR] -> (d means2d, d conic, d rgb,
     d opac, d bg)."""
-    scale = torch.tensor(CONIC_SCALE, dtype=acc.dtype, device=acc.device)
+    scale = device_constant(pack.CONIC_SCALE, acc.device, acc.dtype)
     d_bg = torch.einsum("tpc,tp->c", d_color, final_t)
     return acc[:, 0:2], acc[:, 2:5] * scale, acc[:, 6:9], acc[:, 5], d_bg
 

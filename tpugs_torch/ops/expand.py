@@ -4,9 +4,12 @@ Each gaussian's touched tile rect becomes one slot per (gaussian, tile), in
 gaussian-major order, with the pixel-exact corner cull of
 binning.bin_gaussians. Slot s of gaussian g lies in [offset[g],
 offset[g] + count[g]); slots at or past `p_out` are dropped, so with
-p_out = min(total, pair_capacity) the pairs past the capacity go exactly as
-the reference's clamped chunk offsets drop them, and every output slot is
-written. A culled slot holds the sentinel: tile = num_tiles, depth = +inf.
+p_out = pair_capacity the pairs past the capacity go exactly as the
+reference's clamped chunk offsets drop them. p_out is static, as the
+reference's expand capacity: the slots past the last gaussian's end, which
+no gaussian owns, hold the sentinel too (the wrapper fills the outputs
+before the launch). A culled or unowned slot holds the sentinel: tile =
+num_tiles, depth = +inf; an unowned one also gid 0 and zero attributes.
 Validity is `tile < num_tiles`.
 
 Carry mode (`atab`, the reference's carry_attrs): a second table of the
@@ -39,8 +42,8 @@ ATAB_ROWS = 9  # carry mode: x y ca cb cc op r g b
 def expand_capacity(pair_capacity: int, n: int) -> int:
     """The reference kernel's padded output length for n gaussians: pair
     capacity + worst-case per-chunk padding + one block of tail slack. The
-    port's expansion needs no padding; its output is min(total,
-    pair_capacity) slots."""
+    port's expansion needs no padding; its output is pair_capacity
+    slots."""
     n_chunks = -(-n // GC)
     raw = pair_capacity + n_chunks * (PAD_ALIGN - 1) + OB
     return -(-raw // OB) * OB
@@ -54,9 +57,12 @@ def expand_pairs_plain(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
     [p_out], depth f32 [p_out], gid i32 [p_out]) and, with atab, the
     attributes f32 [9, p_out]."""
     dev = itab.device
-    off, _, tx0, ty0, w = (r.to(torch.int64) for r in itab)
+    if itab.shape[1] == 0:
+        return _sentinel(p_out, num_tiles, dev, atab is not None)
+    off, cnt, tx0, ty0, w = (r.to(torch.int64) for r in itab)
     gx, gy, r2, depth = ftab
     slots = torch.arange(p_out, dtype=torch.int64, device=dev)
+    owned = slots < off[-1] + cnt[-1]  # past it no gaussian owns a slot
     # The owner is the last gaussian whose offset is <= slot; a zero-count
     # gaussian shares its offset with the next one, so it never owns a slot.
     g = torch.searchsorted(off, slots, right=True) - 1
@@ -69,11 +75,27 @@ def expand_pairs_plain(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
     gxg, gyg = gx[g], gy[g]
     dx = torch.clamp(gxg, min=px0, max=px0 + (tile_w - 1)) - gxg
     dy = torch.clamp(gyg, min=py0, max=py0 + (tile_h - 1)) - gyg
-    hit = dx * dx + dy * dy <= r2[g]
+    hit = (dx * dx + dy * dy <= r2[g]) & owned
     tile = torch.where(hit, ty * ntx + tx, torch.full_like(tx, num_tiles))
     dep = torch.where(hit, depth[g], torch.full_like(gxg, float("inf")))
-    out = (tile.to(torch.int32), dep, g.to(torch.int32))
-    return out if atab is None else out + (atab[:, g],)
+    gid = torch.where(owned, g, torch.zeros_like(g))
+    out = (tile.to(torch.int32), dep, gid.to(torch.int32))
+    if atab is None:
+        return out
+    return out + (torch.where(owned, atab[:, g], atab.new_zeros(())),)
+
+
+def _sentinel(p_out: int, num_tiles: int, dev, carry: bool):
+    """p_out unowned slots: (tile num_tiles, depth +inf, gid 0) and, in
+    carry mode, zero attributes."""
+    out = (torch.full((p_out,), num_tiles, dtype=torch.int32, device=dev),
+           torch.full((p_out,), float("inf"), dtype=torch.float32,
+                      device=dev),
+           torch.zeros((p_out,), dtype=torch.int32, device=dev))
+    if carry:
+        out += (torch.zeros((ATAB_ROWS, p_out), dtype=torch.float32,
+                            device=dev),)
+    return out
 
 
 def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
@@ -81,9 +103,11 @@ def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
                  atab: torch.Tensor | None = None):
     """Expand gaussians into p_out (tile, depth, gid) slots. itab int32
     [5, N] (offset, count, tx0, ty0, w >= 1), ftab f32 [4, N] (gx, gy, r2,
-    depth key); offsets are the exclusive prefix sum of the counts. Returns
-    (tile i32 [p_out], depth f32 [p_out], gid i32 [p_out]); with atab f32
-    [9, N] (carry mode) also each slot's attributes f32 [9, p_out]."""
+    depth key); offsets are the exclusive prefix sum of the counts (clipped
+    at p_out or not). Returns (tile i32 [p_out], depth f32 [p_out], gid i32
+    [p_out]); with atab f32 [9, N] (carry mode) also each slot's attributes
+    f32 [9, p_out]. The outputs start as the sentinel (a fill on the
+    device), which the kernel overwrites in every owned slot."""
     if itab.device.type == "cpu":
         return expand_pairs_plain(itab, ftab, p_out, num_tiles, ntx, tile_w,
                                   tile_h, atab)
@@ -102,15 +126,9 @@ def expand_pairs(itab: torch.Tensor, ftab: torch.Tensor, p_out: int,
     if not 0 <= p_out < 2**31 or n >= 2**31:
         raise ValueError(f"expand_pairs: p_out {p_out} or n {n} out of range")
     lib = cuda_lib.lib()
-    tile = torch.empty(p_out, dtype=torch.int32, device=dev)
-    depth = torch.empty(p_out, dtype=torch.float32, device=dev)
-    gid = torch.empty(p_out, dtype=torch.int32, device=dev)
-    out = (tile, depth, gid)
-    attrs = None
-    if atab is not None:
-        attrs = torch.empty((ATAB_ROWS, p_out), dtype=torch.float32,
-                            device=dev)
-        out += (attrs,)
+    out = _sentinel(p_out, num_tiles, dev, atab is not None)
+    tile, depth, gid = out[:3]
+    attrs = out[3] if atab is not None else None
     if p_out == 0 or n == 0:
         return out
     code = lib.tpugs_expand(

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from tpugs_torch import cuda_lib
+from tpugs_torch.device import device_constant
 
 ATTR_ROWS = 16  # x y ca cb cc opac r g b gid valid (pad)
 NUM_ATTR = 9  # compositor attributes x .. b, and gradients per pair
@@ -29,6 +30,7 @@ GID_ROW = 9
 CHUNK = 512  # the reference's DMA chunk, kept for p_aligned_chunked
 LANE_ALIGN = 128  # aligned segment start granularity
 VALID_ROW = 10
+CONIC_SCALE = (-0.5, -1.0, -0.5)  # the conic's pre-scale in rows 2-4
 
 
 def _pad(counts: torch.Tensor) -> torch.Tensor:
@@ -46,7 +48,8 @@ def aligned_offsets(tile_start: torch.Tensor, tile_stop: torch.Tensor):
 
 def aligned_length(astart: torch.Tensor, counts: torch.Tensor) -> int:
     """Columns of the aligned table: the last tile's padded end (one host
-    read)."""
+    read, so for tools and tests: the render path sizes the table by
+    p_aligned_chunked's static bound)."""
     if astart.shape[0] == 0:
         return 0
     return int(astart[-1].to(torch.int64) + _pad(counts[-1]))
@@ -63,7 +66,7 @@ def p_aligned_chunked(pair_capacity: int, num_tiles: int) -> int:
 def gaussian_attrs(means2d, conic, rgb, opac) -> torch.Tensor:
     """The nine compositor attributes per gaussian -> [N, NUM_ATTR]: x y,
     the pre-scaled conic (-a/2, -b, -c/2), opac, r g b."""
-    scale = torch.tensor([-0.5, -1.0, -0.5], dtype=conic.dtype, device=conic.device)
+    scale = device_constant(CONIC_SCALE, conic.device, conic.dtype)
     return torch.cat([means2d, conic * scale, opac[:, None], rgb], dim=1)
 
 

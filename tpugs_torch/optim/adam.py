@@ -11,6 +11,7 @@ import dataclasses
 
 import torch
 
+from tpugs_torch.device import device_constant
 from tpugs_torch.optim import lr_schedule
 
 
@@ -61,11 +62,9 @@ def adam_step(config: AdamConfig, state: AdamState, params: dict,
     bias-correction step. Returns (params, state)."""
     t = state.count + 1
     tf = t.to(torch.float32)
-    f32 = torch.float32
-    bc1 = 1.0 - torch.pow(torch.tensor(config.beta1, dtype=f32,
-                                       device=tf.device), tf)
-    bc2 = 1.0 - torch.pow(torch.tensor(config.beta2, dtype=f32,
-                                       device=tf.device), tf)
+    # float32 betas, cached on the device: no copy from the host per step.
+    bc1 = 1.0 - torch.pow(device_constant(config.beta1, tf.device), tf)
+    bc2 = 1.0 - torch.pow(device_constant(config.beta2, tf.device), tf)
     lrs = group_lrs(config, step, tf.device)
 
     new_params, new_m, new_v = {}, {}, {}

@@ -6,6 +6,8 @@ import dataclasses
 
 import torch
 
+from tpugs_torch.device import device_constant
+
 
 @dataclasses.dataclass(frozen=True)
 class PositionLRConfig:
@@ -26,12 +28,13 @@ LR_ROTATION = 1e-3
 def position_lr(step, config: PositionLRConfig = PositionLRConfig(),
                 device="cpu") -> torch.Tensor:
     """The position group's LR at `step`, a float32 scalar tensor computed
-    in float32 as the reference computes it."""
-    f32 = torch.float32
-    step = torch.as_tensor(step, dtype=f32, device=device)
+    in float32 as the reference computes it. A step already on `device`
+    (as a train step's is) is read there; the ratio's float32 constant is
+    cached on the device, so nothing is copied from the host."""
+    step = torch.as_tensor(step, dtype=torch.float32, device=device)
     t = torch.clamp(step / config.max_steps, 0.0, 1.0)
-    log_ratio = torch.log(torch.tensor(config.lr_final / config.lr_init,
-                                       dtype=f32, device=device))
+    log_ratio = torch.log(device_constant(config.lr_final / config.lr_init,
+                                          device))
     return config.lr_init * torch.exp(t * log_ratio)
 
 

@@ -42,6 +42,20 @@ def _blur_matrix_np(dim: int, window_size: int, sigma: float = 1.5):
     return a
 
 
+_BLUR_ON_DEVICE: dict = {}
+
+
+def _blur_matrix(dim: int, window_size: int, device) -> torch.Tensor:
+    """_blur_matrix_np on `device`, copied there once per (device, size,
+    window) and cached: a train step copies nothing from the host."""
+    key = (torch.device(device), dim, window_size)
+    a = _BLUR_ON_DEVICE.get(key)
+    if a is None:
+        a = torch.from_numpy(_blur_matrix_np(dim, window_size)).to(device)
+        _BLUR_ON_DEVICE[key] = a
+    return a
+
+
 def _blur_maps(maps: torch.Tensor, window_size: int) -> torch.Tensor:
     """[B, H, W] -> [B, H, W]: separable Gaussian blur as two matmuls."""
     if maps.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
@@ -51,8 +65,8 @@ def _blur_maps(maps: torch.Tensor, window_size: int) -> torch.Tensor:
             "(torch.backends.cuda.matmul.allow_tf32 / "
             "torch.set_float32_matmul_precision)")
     h, w = maps.shape[1], maps.shape[2]
-    a_h = torch.from_numpy(_blur_matrix_np(h, window_size)).to(maps.device)
-    a_w = torch.from_numpy(_blur_matrix_np(w, window_size)).to(maps.device)
+    a_h = _blur_matrix(h, window_size, maps.device)
+    a_w = _blur_matrix(w, window_size, maps.device)
     return torch.matmul(torch.matmul(a_h, maps), a_w.T)
 
 

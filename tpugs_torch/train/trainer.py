@@ -3,24 +3,28 @@ rank of a ("data", "gauss") mesh (TrainConfig.mesh, parallel/).
 
 Each step renders one view with gradients (the compositor's backward kernel
 and the sorted segment reduction), takes the L1 + SSIM loss (plus MCMC's
-regularization), and applies Adam, as one eager PyTorch function; in ADC
-mode it also accumulates the screen-space gradient of a zero probe, in
-MCMC mode it adds position noise. The reference runs `steps_per_call`
-steps inside one compiled scan; the port keeps that block structure for
-what it decides, the views drawn (one numpy draw per block) and the
-schedule of logs, events, checkpoints, evaluations and overflow checks,
-and runs the block's steps one by one. The image bank stays on the device.
+regularization), and applies Adam; in ADC mode it also accumulates the
+screen-space gradient of a zero probe, in MCMC mode it adds position noise.
+make_train_step is the one step; make_train_multi_step runs a block of K
+steps, as the reference runs `steps_per_call` steps inside one compiled
+scan: on the card as replays of the step captured as a CUDA graph
+(train/graph.py), with no host read and no copy from the host inside the
+block; on the CPU eagerly, step by step. The single-device Trainer trains
+through it, and decides per block the views drawn (one numpy draw per
+block) and the schedule of logs, events, checkpoints, evaluations and
+overflow checks, reading the block's losses and statistics once after it.
+The image bank stays on the device.
 
 Densification events (ADC's opacity reset and densify, MCMC's relocate and
-grow) run after each block for the steps it covered, as the reference's
-do. Their random draws come from torch.Generators seeded from the state's
-key (seed, steps taken) and a stream tag, so a resumed run draws what an
-uninterrupted one does.
+grow) run eagerly after each block for the steps it covered, as the
+reference's do. Their random draws come from torch.Generators seeded from
+the state's key (seed, steps taken) and a stream tag, so a resumed run
+draws what an uninterrupted one does.
 
-Under a mesh every rank runs this loop with the same schedule: it holds
-its gauss shard of the state (the initial slots interleaved over the
-shards, so each starts with about N0/G alive gaussians and as many free
-slots) and its data row's views, and steps with
+Under a mesh every rank runs this loop with the same schedule, its steps
+one by one: it holds its gauss shard of the state (the initial slots
+interleaved over the shards, so each starts with about N0/G alive
+gaussians and as many free slots) and its data row's views, and steps with
 parallel/dist_train.make_dist_train_step. All ranks draw the same (K, D)
 local view indices per block; a rank takes its row's column. Checkpoints
 and evaluation gather the shards (every rank takes part; rank 0 writes and
@@ -42,7 +46,7 @@ from tpugs_torch import cuda_lib
 from tpugs_torch.core.gaussians import GaussianState
 from tpugs_torch.core.init import init_from_sfm
 from tpugs_torch.data.dataset import Dataset
-from tpugs_torch.device import resolve_device
+from tpugs_torch.device import device_constant, resolve_device
 from tpugs_torch.io.ply import write_gaussian_ply
 from tpugs_torch.ops.render import RasterConfig, render
 from tpugs_torch.optim.adam import (AdamConfig, AdamState, adam_init,
@@ -53,6 +57,7 @@ from tpugs_torch.optim.densify_adc import (ADCConfig, ADCState,
 from tpugs_torch.optim.densify_mcmc import (MCMCConfig, grow, inject_noise,
                                             regularization, relocate)
 from tpugs_torch.optim.lr_schedule import active_sh_degree_for_step
+from tpugs_torch.train import graph
 from tpugs_torch.train.metrics import evaluate_views
 from tpugs_torch.train.loss import combined_loss
 from tpugs_torch.utils.memory import MemoryWatchdog, check_memory_budget
@@ -152,16 +157,32 @@ def initial_key(seed: int) -> np.ndarray:
     return np.asarray([seed & 0xFFFFFFFF, 0], np.uint32)
 
 
+def _background_host(key: np.ndarray, random: bool) -> torch.Tensor:
+    """Black, or uniform in [0, 1)^3 drawn from the step's key, on the
+    host."""
+    if not random:
+        return torch.zeros((3,))
+    gen = torch.Generator().manual_seed((int(key[0]) << 32) | int(key[1]))
+    return torch.rand((3,), generator=gen)
+
+
 def _background(key: np.ndarray, random: bool, device) -> torch.Tensor:
-    """Black, or uniform in [0, 1)^3 drawn from the step's key."""
+    """_background_host on `device` (black is made there)."""
     if not random:
         return torch.zeros((3,), device=device)
-    gen = torch.Generator().manual_seed((int(key[0]) << 32) | int(key[1]))
-    return torch.rand((3,), generator=gen).to(device)
+    return _background_host(key, random).to(device)
 
 
 # Stream tags of the draws made from a state's key besides the background.
 NOISE_STREAM, DENSIFY_STREAM, RELOCATE_STREAM = 1, 2, 3
+
+
+def _generator_seed(key: np.ndarray, stream: int,
+                    shard: int | None = None) -> int:
+    entropy = [int(key[0]), int(key[1]), stream]
+    if shard is not None:
+        entropy.append(int(shard))
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
 
 def event_generator(key: np.ndarray, stream: int, device="cuda",
@@ -171,26 +192,25 @@ def event_generator(key: np.ndarray, stream: int, device="cuda",
     also the gauss shard's index, so shards draw apart and data rows
     alike."""
     device = resolve_device(device)
-    entropy = [int(key[0]), int(key[1]), stream]
-    if shard is not None:
-        entropy.append(int(shard))
-    seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
+    return torch.Generator(device=device).manual_seed(
+        _generator_seed(key, stream, shard))
 
 
-def make_train_step(cfg: TrainConfig, raster: RasterConfig,
-                    scene_extent: float):
-    """One training step: render with gradients, L1 + SSIM (+ MCMC's
-    regularization), Adam; ADC's gradient accumulation or MCMC's noise.
-    Outside ADC mode the step builds no screen-space probe."""
+def _make_step_core(cfg: TrainConfig, raster: RasterConfig):
+    """The step's computation on explicit inputs: (state, image, viewmat,
+    intrinsics, step, sh_degree, background [3], noise generator) ->
+    (params, AdamState, ADCState, StepStats), all new tensors. `step` is
+    the schedule step, a float32 scalar tensor (on the device, or on the
+    CPU, from where the LR schedule copies it)."""
     adc_mode = cfg.densify_mode == "adc"
     mcmc_mode = cfg.densify_mode == "mcmc"
-    grad_scales = {}  # device -> (W/2, H/2), copied to the device once
+    # NDC units: the 2e-4 threshold is calibrated for them, a (W/2, H/2)
+    # factor above the pixel gradient.
+    grad_scale = (raster.img_w * 0.5, raster.img_h * 0.5)
 
-    def train_step(state: TrainState, image, viewmat, intrinsics, step,
-                   sh_degree: int):
+    def core(state: TrainState, image, viewmat, intrinsics, step,
+             sh_degree: int, background, noise_gen):
         dev = image.device
-        background = _background(state.key, cfg.random_background, dev)
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         probe = None
@@ -213,27 +233,226 @@ def make_train_step(cfg: TrainConfig, raster: RasterConfig,
                 dict(zip(names, grads)), step)
             adc = state.adc
             if adc_mode:
-                # NDC units: the 2e-4 threshold is calibrated for them, a
-                # (W/2, H/2) factor above the pixel gradient.
-                if dev not in grad_scales:
-                    grad_scales[dev] = torch.tensor(
-                        [raster.img_w * 0.5, raster.img_h * 0.5], device=dev)
                 adc = adc_accumulate(adc, grads[-1], out.radii,
-                                     grad_scales[dev])
+                                     device_constant(grad_scale, dev))
             if mcmc_mode:
-                new_params = inject_noise(
-                    cfg.mcmc, new_params, state.alive, step,
-                    event_generator(state.key, NOISE_STREAM, dev))
+                new_params = inject_noise(cfg.mcmc, new_params, state.alive,
+                                          step, noise_gen)
             l1 = torch.mean(torch.abs(out.color - image))
         stats = StepStats(loss=loss.detach(), l1=l1, num_pairs=out.num_pairs,
                           pair_overflow=out.pair_overflow,
                           max_tile_hits=out.max_tile_hits,
                           hit_overflow=out.hit_overflow)
+        return new_params, new_adam, adc, stats
+
+    return core
+
+
+def make_train_step(cfg: TrainConfig, raster: RasterConfig,
+                    scene_extent: float):
+    """One training step: render with gradients, L1 + SSIM (+ MCMC's
+    regularization), Adam; ADC's gradient accumulation or MCMC's noise.
+    Outside ADC mode the step builds no screen-space probe. `step` is the
+    schedule step as a float32 scalar tensor; one on the device is read
+    there, one on the CPU is copied over."""
+    core = _make_step_core(cfg, raster)
+    mcmc_mode = cfg.densify_mode == "mcmc"
+
+    def train_step(state: TrainState, image, viewmat, intrinsics, step,
+                   sh_degree: int):
+        dev = image.device
+        noise = (event_generator(state.key, NOISE_STREAM, dev)
+                 if mcmc_mode else None)
+        params, adam, adc, stats = core(
+            state, image, viewmat, intrinsics, step, sh_degree,
+            _background(state.key, cfg.random_background, dev), noise)
         key = state.key + np.asarray([0, 1], np.uint32)
-        return TrainState(params=new_params, alive=state.alive, adam=new_adam,
+        return TrainState(params=params, alive=state.alive, adam=adam,
                           adc=adc, key=key), stats
 
     return train_step
+
+
+# Staged per-step inputs of a graphed block: view index, schedule step,
+# background r g b.
+_ROW = 5
+_STAT_FIELDS = ("loss", "l1", "num_pairs", "pair_overflow", "max_tile_hits",
+                "hit_overflow")
+
+
+class _GraphedSteps:
+    """make_train_multi_step's card path: the step's state in static
+    buffers, its per-step inputs staged rows (graph.BlockRunner)."""
+
+    def __init__(self, cfg: TrainConfig, raster: RasterConfig, device):
+        self.cfg = cfg
+        self.core = _make_step_core(cfg, raster)
+        self.adc_mode = cfg.densify_mode == "adc"
+        self.noise = (torch.Generator(device=device)
+                      if cfg.densify_mode == "mcmc" else None)
+        self.runner = graph.BlockRunner(
+            device, _ROW, () if self.noise is None else (self.noise,))
+        self.buf = None  # TrainState of the static buffers
+        self.stats = None  # StepStats of static buffers
+        self.bank = None  # the (images, viewmats, intrinsics) captured
+
+    def _tensors(self, state: TrainState) -> list:
+        names = sorted(state.params)
+        out = ([state.params[k] for k in names]
+               + [state.adam.m[k] for k in names]
+               + [state.adam.v[k] for k in names]
+               + [state.adam.count, state.alive])
+        if self.adc_mode:
+            out += [state.adc.grad_accum, state.adc.grad_count,
+                    state.adc.max_radii]
+        return out
+
+    def _adopt(self, state: TrainState) -> None:
+        """The state's values into the static buffers: a device copy of
+        each tensor that is not already its buffer; new buffers (and new
+        graphs) when a shape or type changed."""
+        new = self._tensors(state)
+        if self.buf is None or not graph.same_layout(new,
+                                                     self._tensors(self.buf)):
+            self.runner.release()
+            c = lambda d: {k: torch.empty_like(v) for k, v in d.items()}  # noqa: E731
+            adc = state.adc
+            if self.adc_mode:
+                adc = ADCState(*(torch.empty_like(getattr(adc, f)) for f in
+                                 ("grad_accum", "grad_count", "max_radii")))
+            self.buf = TrainState(
+                params=c(state.params), alive=torch.empty_like(state.alive),
+                adam=AdamState(m=c(state.adam.m), v=c(state.adam.v),
+                               count=torch.empty_like(state.adam.count)),
+                adc=adc, key=state.key)
+        graph.load_buffers(self._tensors(self.buf), new)
+
+    def _body(self, images, viewmats, intrinsics, sh_degree: int):
+        runner, buf = self.runner, self.buf
+
+        def body():
+            row = runner.row()
+            v = row[0].to(torch.int64).reshape(1)
+            params, adam, adc, stats = self.core(
+                buf, images.index_select(0, v)[0],
+                viewmats.index_select(0, v)[0],
+                intrinsics.index_select(0, v)[0], row[1], sh_degree,
+                row[2:5], self.noise)
+            new = TrainState(params=params, alive=buf.alive, adam=adam,
+                             adc=adc, key=buf.key)
+            with torch.no_grad():
+                for b, t in zip(self._tensors(buf), self._tensors(new)):
+                    if t is not b:
+                        b.copy_(t)
+                if self.stats is None:
+                    self.stats = StepStats(**{
+                        f: torch.empty_like(getattr(stats, f))
+                        for f in _STAT_FIELDS})
+                for f in _STAT_FIELDS:
+                    getattr(self.stats, f).copy_(getattr(stats, f))
+                runner.put_loss(stats.loss)
+                runner.advance()
+
+        return body
+
+    def __call__(self, state: TrainState, images, viewmats, intrinsics,
+                 vi: np.ndarray, step0: float, sh_degree: int):
+        k = vi.shape[0]
+        key0 = state.key
+        self._adopt(state)
+        bank = (images, viewmats, intrinsics)
+        if self.bank is None or any(a is not b for a, b in
+                                    zip(bank, self.bank)):
+            self.runner.release()
+            self.bank = bank
+        rows = np.zeros((k, _ROW), np.float32)
+        rows[:, 0] = vi
+        rows[:, 1] = step0 + np.arange(k)
+        keys = [key0 + np.asarray([0, j], np.uint32) for j in range(k)]
+        if self.cfg.random_background:
+            rows[:, 2:] = np.stack([_background_host(key, True).numpy()
+                                    for key in keys])
+        self.runner.stage(rows)
+        before = None
+        if self.noise is not None:
+            seeds = [_generator_seed(key, NOISE_STREAM) for key in keys]
+
+            def before(j):
+                self.noise.manual_seed(seeds[j])
+        # A degree below this one does not come again in a run.
+        self.runner.release(keep=lambda deg: deg >= sh_degree)
+        self.runner.run(sh_degree, k, self._body(images, viewmats,
+                                                 intrinsics, sh_degree),
+                        before)
+        buf = self.buf
+        out = TrainState(
+            params=dict(buf.params), alive=buf.alive,
+            adam=AdamState(m=dict(buf.adam.m), v=dict(buf.adam.v),
+                           count=buf.adam.count),
+            adc=buf.adc if self.adc_mode else state.adc,
+            key=key0 + np.asarray([0, k], np.uint32))
+        stats = StepStats(**{f: getattr(self.stats, f).clone()
+                             for f in _STAT_FIELDS})
+        return out, self.runner.losses[:k].clone(), stats
+
+
+def make_train_multi_step(cfg: TrainConfig, raster: RasterConfig,
+                          scene_extent: float):
+    """K train steps per call, as the reference's make_train_multi_step
+    (K steps inside one jitted lax.scan: one dispatch per K steps):
+
+        multi_step(state, image_bank [V, H, W, 3], viewmats [V, 4, 4],
+                   intrinsics [V, 4], view_idx [K], step0, sh_degree)
+          -> (state, losses [K], last StepStats)
+
+    view_idx: the block's view indices, host ints (numpy, a list or a CPU
+    tensor); step0: the schedule step of its first step, a number. Step j
+    trains view view_idx[j] at schedule step step0 + j with the key
+    advanced j times: K calls of make_train_step, exactly.
+
+    On the card the block runs as replays of the step captured as a CUDA
+    graph (train/graph.py): one staged copy of the block's inputs before
+    it, no host read and no copy from the host inside it. The step is
+    captured once per SH degree (a lower degree's graph is released then)
+    and again when the image bank or the state's shapes change; the raster
+    configuration is this multi-step's own, so grown capacities take a new
+    one, as the reference re-jits. The first two steps before a capture
+    run eagerly, as steps of the block. The returned state's tensors are
+    the static buffers the graph updates in place, so the next call
+    overwrites them (the reference donates its state likewise); a state
+    whose tensors are others (after an event or a checkpoint load) is
+    copied into them first. The losses and stats are copies. MCMC's noise
+    comes from a generator registered with the graph and re-seeded before
+    each step with event_generator's seed, so it draws what the eager step
+    draws. On the CPU the steps run eagerly, one by one."""
+    train_step = make_train_step(cfg, raster, scene_extent)
+    graphed = {}  # device -> _GraphedSteps
+
+    def multi_step(state: TrainState, images, viewmats, intrinsics, view_idx,
+                   step0, sh_degree: int):
+        if isinstance(view_idx, torch.Tensor):
+            if view_idx.is_cuda:
+                raise ValueError("multi_step: view_idx must be host ints "
+                                 "(reading a card tensor waits for it)")
+            view_idx = view_idx.numpy()
+        vi = np.asarray(view_idx, np.int64).reshape(-1)
+        step0 = float(step0)
+        dev = images.device
+        if dev.type == "cuda":
+            if dev not in graphed:
+                graphed[dev] = _GraphedSteps(cfg, raster, dev)
+            return graphed[dev](state, images, viewmats, intrinsics, vi,
+                                step0, sh_degree)
+        losses = []
+        for j, v in enumerate(vi):
+            state, stats = train_step(
+                state, images[v], viewmats[v], intrinsics[v],
+                torch.tensor(step0 + j, dtype=torch.float32), sh_degree)
+            losses.append(stats.loss)
+        return state, torch.stack(losses), stats
+
+    multi_step.graphed = graphed  # device -> its graphs and counts
+    return multi_step
 
 
 def make_densify_step(cfg: TrainConfig, scene_extent: float):
@@ -290,6 +509,22 @@ def _block_length(step: int, k_max: int, iters: int) -> int:
     SH-degree boundary or the run's end."""
     k_blk = k_max - (step % k_max) if step % k_max else k_max
     return min(k_blk, iters - step, 1000 - step % 1000)
+
+
+def _read_block(losses: torch.Tensor, stats: StepStats):
+    """A block's losses [K] and last StepStats read to the host in one
+    copy -> (losses, float64 numpy [K]; StepStats of numpy scalars, so
+    int() and bool() on them read nothing more)."""
+    names = [f.name for f in dataclasses.fields(StepStats)
+             if getattr(stats, f.name) is not None]
+    vals = [getattr(stats, n) for n in names]
+    host = torch.cat([losses.reshape(-1).to(torch.float64)] + [
+        v.reshape(1).to(torch.float64) for v in vals]).cpu().numpy()
+    k = losses.numel()
+    kind = lambda v: (np.bool_ if v.dtype == torch.bool else  # noqa: E731
+                      np.float64 if v.is_floating_point() else np.int64)
+    return host[:k], StepStats(**{n: kind(v)(x) for n, v, x in
+                                  zip(names, vals, host[k:])})
 
 
 def _host_ints(stats: dict) -> dict:
@@ -472,6 +707,8 @@ class Trainer:
         if self.mesh is None:
             self._train_step = make_train_step(self.cfg, self.raster,
                                                self.scene_extent)
+            self._multi_step = make_train_multi_step(self.cfg, self.raster,
+                                                     self.scene_extent)
         else:
             from tpugs_torch.parallel.dist_train import make_dist_train_step
 
@@ -617,21 +854,29 @@ class Trainer:
             k_blk = _block_length(step, k_max, iters)
             vi = self._draw_views(k_blk)
             sh_deg = active_sh_degree_for_step(step, cfg.sh_degree)
-            losses = []
-            for j, v in enumerate(vi):
-                self.state, stats = self._train_step(
-                    self.state, images[v], self._viewmats[v],
-                    self._intrinsics[v],
-                    torch.tensor(step + j, dtype=torch.float32), sh_deg)
-                losses.append(stats.loss)
+            if self.mesh is None:
+                self.state, losses, stats = self._multi_step(
+                    self.state, images, self._viewmats, self._intrinsics, vi,
+                    step, sh_deg)
+            else:
+                losses = []
+                for j, v in enumerate(vi):
+                    self.state, stats = self._train_step(
+                        self.state, images[v], self._viewmats[v],
+                        self._intrinsics[v],
+                        torch.tensor(step + j, dtype=torch.float32), sh_deg)
+                    losses.append(stats.loss)
+                losses = torch.stack(losses)
+            # The block's one host read; it waits for its last kernel, so a
+            # contract violation found on the card raises before any log or
+            # save.
+            losses, stats = _read_block(losses, stats)
+            cuda_lib.check_guards()
             prev, step = step, step + k_blk
 
             overflow = (bool(stats.pair_overflow) or bool(stats.hit_overflow)
                         or bool(stats.send_overflow is not None
                                 and stats.send_overflow))
-            # The read above waited for the block's last kernel: a contract
-            # violation found on the card raises before any log or save.
-            cuda_lib.check_guards()
             if overflow:
                 self._handle_overflow(stats, step)
 
