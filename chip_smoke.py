@@ -99,14 +99,29 @@ a nonzero exit:
      exchange capacity auto-tuned) with its normalised gradient (Adam's
      first moment) against the single-device step's by the card-vs-CPU
      rule, K1-K5 once per step, the mesh step timed beside the
-     single-device step; then the train CLI with --mesh data=1,gauss=1
-     under `torchrun --standalone` on the densify dataset, 4 steps; (b)
-     data=1,gauss=2 as two spawned ranks on the one card (NCCL refuses two
-     ranks on one device, so the phase names gloo, which takes card
+     single-device step; (c) on the same world,
+     dist_train.make_dist_multi_step's blocks through the captured graph
+     (every axis of size 1): two blocks of 10 at the garden frame (ADC) and
+     at bench-50k (MCMC), each bit-equal to as many eager mesh steps
+     (losses, mesh statistics, every tensor of the state), K1-K5 once per
+     replayed step in the profiler, capture seconds, pool bytes, the busy
+     share of the replayed block, ms per step of the graphed block, the
+     eager mesh steps and the single-device graphed block in turns, and
+     the eager mesh step under sync debug mode "error"; (d) NCCL inside a
+     CUDA graph on the world-1 group itself: all_to_all_single,
+     all_gather_into_tensor and all_reduce (SUM and MAX, f32 and int64)
+     at the garden step's shapes, captured and replayed equal to the eager
+     collectives; (e) the train CLI with --mesh data=1,gauss=1 under
+     `torchrun --standalone` on the densify dataset, 8 steps, through the
+     graphed block (`chip_smoke.py --mesh-cli` prints the graph counts);
+     (b) data=1,gauss=2 as two spawned ranks on the one card (NCCL refuses
+     two ranks on one device, so the phase names gloo, which takes card
      tensors through host memory), the same checks on each rank's shard,
      rank 1 at row offset 14 with its K1 (row-clipped rects), K2, K3, K4
      and K5 held against their plain versions and timed; the exchange's
-     bytes per rank and step and the send capacity printed;
+     bytes per rank and step and the send capacity printed; (f) each
+     rank's make_dist_multi_step of 4 steps, eager on gloo, equal to its
+     own eager steps;
   10. oracles (after phase viewer): (a) the pre-aligned path at the garden
      train frame, bin_gaussians_aligned's layout equal to
      align_segments(bin_gaussians(...)) on the card, CompositePre's image
@@ -167,7 +182,8 @@ Prints a {"kernels": [...]} line with the eight kernels, each with its
 launches on its own slice's main path (K1-K5: the train step; K4b, K6: the
 2^24 train step; K1b: the carried train frame) and on every path driven
 (the ADC and MCMC CLI runs and the ADC run's evaluation, the viewer's
-anchor build and its drag, the mesh steps of (a) and of each rank of (b),
+anchor build and its drag, the mesh steps of (a) and of each rank of (b)
+and the replayed mesh blocks of (c),
 the pre-aligned, fast-presort and scan frames of phase oracles, the
 steps of phase bench's three runs and phase graph's profiled blocks and
 rounds among them),
@@ -2570,7 +2586,7 @@ def phase_train_densify(tmp, dev, card):
     images = tr._image_bank()
     args = (images[0], tr._viewmats[0], tr._intrinsics[0],
             torch.tensor(100.0), 0)
-    adc_step = tr._train_step
+    adc_step = make_train_step(tr.cfg, tr.raster, tr.scene_extent)
     none_step = make_train_step(dataclasses.replace(
         tr.cfg, densify_mode="none"), tr.raster, tr.scene_extent)
     step_ms = [cuda_ms(lambda: adc_step(st, *args), reps=5, warmup=1)
@@ -3315,7 +3331,7 @@ def phase_oracles(dev, cli_params, errs, card):
 
 
 MESH_STEPS = 4  # timed steps after step 0, per mesh configuration
-MESH_CLI_STEPS = 4
+MESH_CLI_STEPS = 8
 ULP2 = 5e-7  # mesh colour against the single-device render (tpugs' bound)
 MESH_RANK_TIMEOUT_S = 240
 
@@ -3475,6 +3491,280 @@ def mesh_check(mesh, dev, errs, where: str, kernel_rows: bool):
             "img_err": img_err, "grad_share": min(shares.values())}
 
 
+MESH_BLOCK_K = 10  # steps of each graphed mesh block in phase mesh (c)
+MESH_GLOO_K = 4  # steps of the gloo ranks' eager block in (f)
+
+
+def bench_50k_scene(dev):
+    """bench-50k's frame as mesh_scene's tuple: (raster config, whole train
+    state, viewmat, intrinsics, target)."""
+    from tpugs_torch import bench
+    from tpugs_torch.ops.render import RasterConfig
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import TrainState, initial_key
+
+    s = bench.PRIMARY
+    w, h = s["img_w"], s["img_h"]
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=bench.TILE, tile_w=bench.TILE,
+                       pair_capacity=s["pair_capacity"],
+                       max_hits_per_tile=s["max_hits"])
+    params, alive, vm, intr, _ = bench.bench_scene(w, h, s["n"], None, dev)
+    state = TrainState(params=params, alive=alive, adam=adam_init(params),
+                       adc=adc_init(s["n"], dev), key=initial_key(0))
+    return cfg, state, vm, intr, bench.bench_target(w, h, dev)
+
+
+def mesh_send_capacity(mesh, cfg, state, viewmat, intr) -> int:
+    """The exchange capacity the Trainer auto-tunes for this view."""
+    from tpugs_torch.parallel import dist_train as DT
+
+    worst = DT.measure_max_send_count(mesh, cfg, state.params, state.alive,
+                                      [viewmat.cpu().numpy()],
+                                      [intr.cpu().numpy()])
+    return DT.auto_send_capacity(worst, state.alive.shape[0])
+
+
+def stats_diffs(a, b) -> list:
+    """The StepStats fields of a that are not bit-equal to b's."""
+    import dataclasses
+
+    import torch
+
+    return [f.name for f in dataclasses.fields(a)
+            if getattr(a, f.name) is not None
+            and not torch.equal(getattr(a, f.name), getattr(b, f.name))]
+
+
+def mesh_block(mesh, dev, label: str, mode: str, scene, launches_by,
+               timed: bool):
+    """make_dist_multi_step on a 1x1 mesh of an NCCL world (densify mode
+    `mode`, at `scene`): a first block of MESH_BLOCK_K steps (2 eager
+    steps, the capture, the rest replays) and a second one, all replays
+    and profiled, each against as many eager make_dist_train_step steps
+    from the same state: losses, the mesh statistics and every tensor of
+    the state bit-equal; K1-K5 once per replayed step among the profile's
+    kernel events. timed: the eager mesh step under sync debug mode
+    "error", then ms per step of the graphed block, the eager mesh steps
+    and the single-device graphed block (make_train_multi_step) in turns.
+    Returns the numbers printed."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.parallel import dist_train as DT
+    from tpugs_torch.train.trainer import TrainConfig, make_train_multi_step
+
+    k = MESH_BLOCK_K
+    cfg, state0, vm, intr, target = scene
+    check(DT.graph_capturable(mesh), f"{label}: the mesh is not capturable")
+    cap = mesh_send_capacity(mesh, cfg, state0, vm, intr)
+    tcfg = TrainConfig(densify_mode=mode, dist_send_capacity=cap)
+    multi = DT.make_dist_multi_step(tcfg, cfg, mesh, 1.0)
+    step = DT.make_dist_train_step(tcfg, cfg, mesh, 1.0)
+    bank = (target[None], vm[None], intr[None])
+    vi = np.zeros(k, np.int64)
+    full = lambda v: torch.full((), float(v), device=dev)  # noqa: E731
+
+    def eager(st, first):
+        losses = []
+        for j in range(k):
+            st, stats = step(st, target, vm, intr, full(first + j), 3)
+            losses.append(stats.loss)
+        return st, torch.stack(losses), stats
+
+    def held(got, ref, block: str):
+        (s_g, l_g, st_g), (s_e, l_e, st_e) = got, ref
+        diffs = state_diffs(s_g, s_e) + stats_diffs(st_g, st_e)
+        check(torch.equal(l_g, l_e) and not diffs,
+              f"{label} {mode} {block}: the graphed block differs from the "
+              f"eager mesh steps (losses max diff "
+              f"{float((l_g - l_e).abs().max())}; {diffs})")
+        check(bool(torch.isfinite(l_g).all()) and not bool(st_g.pair_overflow)
+              and not bool(st_g.send_overflow),
+              f"{label} {mode} {block}: losses {l_g.tolist()}, overflow")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    first = multi(state0, *bank, vi, 0, 3)
+    float(first[1][-1])
+    first_s = time.perf_counter() - t0
+    runner = multi.graphed[dev].runner
+    check(runner.captures == 1 and runner.replays == k - 2,
+          f"{label} {mode}: {runner.captures} captures, {runner.replays} "
+          f"replays in the first block")
+    ref = eager(state0, 0)
+    held(first, ref, "first block")
+    second, counts, busy, wall, events = profiled(
+        lambda: multi(first[0], *bank, vi, k, 3))
+    launches_by[f"mesh_1x1_{label}_{mode}_block"] = counts
+    check_launches(counts, SORTED_PATH, k,
+                   f"{label} {mode} replayed mesh block steps (profiler)")
+    ref = eager(ref[0], k)
+    held(second, ref, "second block")
+    out = {"capture_s": runner.capture_seconds[0],
+           "pool_bytes": pool_bytes(runner), "busy_share": busy / wall,
+           "busy_ms": busy, "wall_ms": wall, "first_s": first_s,
+           "send_capacity": cap, "counts": counts,
+           "losses": second[1].tolist()}
+    if timed:
+        st = ref[0]
+        torch.cuda.synchronize()
+        without_sync(lambda: step(st, target, vm, intr, full(2 * k), 3),
+                     f"the eager mesh step ({label}, {mode})")
+        single = make_train_multi_step(tcfg, cfg, 1.0)
+        s1 = single(state0, *bank, vi, 0, 3)[0]
+        times = {"graph": [], "eager": [], "single_graph": []}
+        s_g = second[0]
+        for _ in range(2):
+            for way in times:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if way == "graph":
+                    s_g, losses, _ = multi(s_g, *bank, vi, 0, 3)
+                elif way == "eager":
+                    _, losses, _ = eager(st, 0)
+                else:
+                    s1, losses, _ = single(s1, *bank, vi, 0, 3)
+                float(losses[-1])
+                times[way].append((time.perf_counter() - t0) * 1e3 / k)
+        out["ms"] = times
+        out["single_pool_bytes"] = pool_bytes(single.graphed[dev].runner)
+        # Where the mesh step's extra device time goes: both replayed
+        # blocks' busiest device operations, ms per step.
+        _, _, s_busy, _, s_events = profiled(
+            lambda: single(s1, *bank, vi, 0, 3))
+        out["busy_ms_per_step"] = (busy / k, s_busy / k)
+        out["top"] = (top_device_ops(events, k), top_device_ops(s_events, k))
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def top_device_ops(events, per: int, n: int = 8) -> list:
+    """The n device events of a profile with the most self device time, as
+    (name cut to 48 characters, ms per `per`)."""
+    attr = ("self_device_time_total"
+            if events and hasattr(events[0], "self_device_time_total")
+            else "self_cuda_time_total")
+    top = sorted(events, key=lambda e: -getattr(e, attr))[:n]
+    return [(e.key[:48], round(getattr(e, attr) / 1e3 / per, 3)) for e in top]
+
+
+def nccl_capture_probe(dev, scene, cap: int) -> dict:
+    """(d) NCCL inside a CUDA graph, on the world-1 NCCL group itself
+    (parallel/comm.py skips collectives over an axis of size 1): each
+    collective the mesh step runs, at the garden step's shapes and
+    types (the exchange's all_to_all_single of f32 [G, cap, 12]; the colour
+    tiles' all_gather_into_tensor of f32 and the statistics' of int64; the
+    gradients' all_reduce SUM of f32, the radii's MAX of f32 and a count's
+    MAX of int64), run eagerly on a side stream, captured, then replayed
+    on new inputs: each replay's outputs equal the same collectives run
+    eagerly on those inputs, and, over one rank, the inputs."""
+    import torch
+    import torch.distributed as dist
+
+    from tpugs_torch.parallel import tile_shard as TS
+
+    cfg, state = scene[:2]
+    n = state.alive.shape[0]
+    red = dist.ReduceOp
+    shapes = {
+        "all_to_all_f32": ((1, cap, TS.EXCHANGE_ATTRS), torch.float32),
+        "all_gather_f32": ((cfg.num_tiles, cfg.pix, 3), torch.float32),
+        "all_gather_i64": ((1, 5), torch.int64),
+        "all_reduce_sum_f32": ((n * 61 + 2,), torch.float32),
+        "all_reduce_max_f32": ((n,), torch.float32),
+        "all_reduce_max_i64": ((1,), torch.int64),
+    }
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    def draw(shape, dtype):
+        if dtype == torch.int64:
+            return torch.randint(0, 1 << 40, shape, dtype=dtype, device=dev,
+                                 generator=gen)
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    ins = {k: draw(*v) for k, v in shapes.items()}
+    outs = {k: torch.empty_like(v) for k, v in ins.items()}
+
+    def collectives():
+        dist.all_to_all_single(outs["all_to_all_f32"], ins["all_to_all_f32"])
+        dist.all_gather_into_tensor(outs["all_gather_f32"],
+                                    ins["all_gather_f32"])
+        dist.all_gather_into_tensor(outs["all_gather_i64"],
+                                    ins["all_gather_i64"])
+        for name, op in (("all_reduce_sum_f32", red.SUM),
+                         ("all_reduce_max_f32", red.MAX),
+                         ("all_reduce_max_i64", red.MAX)):
+            outs[name].copy_(ins[name])
+            dist.all_reduce(outs[name], op=op)
+
+    main = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        collectives()  # the eager warm-up the capture needs
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=side):
+        collectives()
+    capture_s = time.perf_counter() - t0
+    results = {}
+    for rep in range(2):
+        for v in ins.values():
+            v.copy_(draw(v.shape, v.dtype))
+        collectives()
+        want = {k: v.clone() for k, v in outs.items()}
+        for v in outs.values():
+            v.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for k in ins:
+            ok = torch.equal(outs[k], want[k]) and torch.equal(
+                outs[k], ins[k])
+            check(ok, f"NCCL capture probe: replay {rep} of {k} differs "
+                  f"from the eager collective")
+            results[k] = ok
+    return {"capture_s": capture_s, "bytes": sum(
+        v.numel() * v.element_size() for v in ins.values()),
+        "collectives": sorted(results)}
+
+
+def gloo_block(mesh, dev) -> dict:
+    """(f) make_dist_multi_step on this gloo rank for MESH_GLOO_K steps at
+    the garden frame: the mesh cannot be captured, so the block runs its
+    steps eagerly; its losses and state equal as many make_dist_train_step
+    steps from the same state, bit for bit."""
+    import numpy as np
+    import torch
+
+    from tpugs_torch.parallel import dist_train as DT
+    from tpugs_torch.train.trainer import TrainConfig
+
+    cfg, whole, vm, intr, target = mesh_scene(dev)
+    state = DT.shard_train_state(mesh, whole)
+    del whole
+    cap = mesh_send_capacity(mesh, cfg, state, vm, intr)
+    tcfg = TrainConfig(densify_mode="adc", dist_send_capacity=cap)
+    check(not DT.graph_capturable(mesh), "a gloo mesh of 2 ranks reads as "
+          "capturable")
+    multi = DT.make_dist_multi_step(tcfg, cfg, mesh, 1.0)
+    step = DT.make_dist_train_step(tcfg, cfg, mesh, 1.0)
+    vi = np.zeros(MESH_GLOO_K, np.int64)
+    got, losses, _ = multi(state, target[None], vm[None], intr[None], vi, 0, 3)
+    check(not multi.graphed, "the gloo block took the graphed path")
+    ref, ref_losses = state, []
+    for j in range(MESH_GLOO_K):
+        ref, st = step(ref, target, vm, intr, torch.tensor(float(j)), 3)
+        ref_losses.append(st.loss)
+    ref_losses = torch.stack(ref_losses)
+    diffs = state_diffs(got, ref)
+    check(torch.equal(losses, ref_losses) and not diffs,
+          f"gloo block against its eager steps: {diffs}")
+    return {"losses": losses.tolist(), "way": "eager (gloo)"}
+
+
 def mesh_rank(rank: int, store: str, out: str):
     """Rank `rank` of phase mesh (b): a gloo world of two ranks on card 0,
     data=1,gauss=2 (NCCL refuses two ranks on one card); rank 1 holds its
@@ -3502,6 +3792,7 @@ def mesh_rank(rank: int, store: str, out: str):
         errs = {}
         res = mesh_check(mesh, dev, errs, f"mesh 1x2 rank {rank}",
                          kernel_rows=rank == 1)
+        res["block"] = gloo_block(mesh, dev)
         res["errs"] = errs
         with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
@@ -3535,10 +3826,19 @@ def phase_mesh(tmp, dev, errs):
         "nccl", init_method=f"file://{os.path.join(tmp, 'nccl_store')}",
         rank=0, world_size=1, timeout=datetime.timedelta(seconds=300),
         device_id=dev)
+    block_launches = {}
     try:
         mesh = make_mesh((1, 1), device=dev)
         check(mesh.backend == "nccl", f"backend {mesh.backend}")
         a = mesh_check(mesh, dev, errs, "mesh 1x1", kernel_rows=False)
+        # (c) the block through the graph; (d) NCCL inside a graph.
+        garden = mesh_scene(dev)
+        c = mesh_block(mesh, dev, "garden", "adc", garden, block_launches,
+                       timed=True)
+        c50 = mesh_block(mesh, dev, "50k", "mcmc", bench_50k_scene(dev),
+                         block_launches, timed=False)
+        d = nccl_capture_probe(dev, garden, c["send_capacity"])
+        del garden
     finally:
         dist.destroy_process_group()
     cfg, whole, viewmat, intr, target = mesh_scene(dev)
@@ -3557,13 +3857,46 @@ def phase_mesh(tmp, dev, errs):
           f"(max send {a['max_send']}, N/G {a['n_loc']}), exchange "
           f"{a['a2a_bytes']} B per step, colour gather {a['color_bytes']} B; "
           f"launches {a['launches']}", flush=True)
+    ms = c["ms"]
+    print(f"mesh 1x1 (nccl, world 1) block: make_dist_multi_step through the "
+          f"graph (graph_capturable: every axis of size 1, no collective "
+          f"captured); garden ADC, 2 blocks of {MESH_BLOCK_K} bit-equal to "
+          f"the eager mesh steps (losses, mesh stats, every tensor of the "
+          f"state); first block {c['first_s']:.3f} s (2 eager steps, capture "
+          f"{c['capture_s']:.3f} s, {MESH_BLOCK_K - 2} replays); replayed "
+          f"block's kernels by profiler {c['counts']}; busy share "
+          f"{c['busy_share']:.4f} ({c['busy_ms']:.3f} of {c['wall_ms']:.3f} "
+          f"ms); ms per step in turns: mesh graph "
+          f"{[round(x, 3) for x in ms['graph']]}, eager mesh "
+          f"{[round(x, 3) for x in ms['eager']]}, single-device graph "
+          f"{[round(x, 3) for x in ms['single_graph']]}; graph pool "
+          f"{c['pool_bytes']} B (single-device {c['single_pool_bytes']} B); "
+          f"peak allocated {c['peak_gib']:.3f} GiB; send capacity "
+          f"{c['send_capacity']}; the eager mesh step raised nothing under "
+          f"sync debug \"error\"", flush=True)
+    print(f"mesh 1x1 block against the single-device graphed block, device "
+          f"busy ms per step {c['busy_ms_per_step'][0]:.3f} against "
+          f"{c['busy_ms_per_step'][1]:.3f}; top device ops (ms per step): "
+          f"mesh {c['top'][0]}; single-device {c['top'][1]}", flush=True)
+    print(f"mesh 1x1 (nccl, world 1) block: 50k MCMC through the graph, 2 "
+          f"blocks of {MESH_BLOCK_K} bit-equal to the eager mesh steps (the "
+          f"registered generator re-seeded per step from the key and the "
+          f"shard); capture {c50['capture_s']:.3f} s, pool "
+          f"{c50['pool_bytes']} B; kernels by profiler {c50['counts']}; busy "
+          f"share {c50['busy_share']:.4f}", flush=True)
+    print(f"mesh nccl capture probe (world-1 NCCL group): "
+          f"{', '.join(d['collectives'])} captured in {d['capture_s']:.3f} s "
+          f"and replayed twice on new inputs, equal to the eager "
+          f"collectives ({d['bytes']} B of inputs)", flush=True)
 
-    # The train CLI under torchrun, world size 1, NCCL.
+    # (e) The train CLI under torchrun, world size 1, NCCL, through the
+    # graphed block.
     ds = os.path.join(tmp, "gt_densify")
     out_dir = os.path.join(tmp, "mesh_cli_out")
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", "1", "-m", "tpugs_torch.apps.train", "-d", ds,
+           "--nproc-per-node", "1", os.path.abspath(__file__), "--mesh-cli",
+           "-d", ds,
            "-o", out_dir, "-i", str(MESH_CLI_STEPS), "--no-densify",
            "--capacity", str(1 << 18), "--sh-degree", "3", "--log-every",
            "1", "--save-every", "0", "--max-hits", str(TRAIN_MAX_HITS),
@@ -3579,13 +3912,18 @@ def phase_mesh(tmp, dev, errs):
           f"{run.returncode}: {run.stderr[-2000:]}")
     check("backend nccl" in run.stdout and "mesh: data=1 gauss=1" in
           run.stdout, "the CLI did not run on an NCCL mesh")
+    m = re.search(r"graph: captures (\d+) replays (\d+)", run.stdout)
+    check(m is not None and int(m.group(1)) >= 1 and int(m.group(2)) >= 1,
+          "the mesh CLI's steps did not run as graph replays")
+    cli_captures, cli_replays = int(m.group(1)), int(m.group(2))
     hist = [json.loads(x) for x in open(os.path.join(out_dir,
                                                      "history.jsonl"))]
     check([r["step"] for r in hist] == list(range(MESH_CLI_STEPS))
           and all(math.isfinite(r["loss"]) for r in hist),
           f"mesh cli history {hist}")
     print(f"mesh cli: torchrun, {MESH_CLI_STEPS} steps in {cli_s:.1f} s "
-          f"(process start, dataset, init included)", flush=True)
+          f"(process start, dataset, init included); {cli_replays} of the "
+          f"steps graph replays ({cli_captures} captures)", flush=True)
 
     # (b) two ranks on the one card: the library is built (phase build).
     ctx = mp.get_context("spawn")
@@ -3625,11 +3963,14 @@ def phase_mesh(tmp, dev, errs):
               f"send capacity {res['send_capacity']} (max send "
               f"{res['max_send']}, N/G {res['n_loc']}), exchange "
               f"{res['a2a_bytes']} B per step, colour gather "
-              f"{res['color_bytes']} B; launches {res['launches']}",
-              flush=True)
+              f"{res['color_bytes']} B; launches {res['launches']}; "
+              f"make_dist_multi_step ran {MESH_GLOO_K} steps {res['block']['way']}"
+              f" (graph_capturable false on gloo), losses "
+              f"{[round(x, 6) for x in res['block']['losses']]} equal to its "
+              f"eager steps", flush=True)
     print(f"mesh: ranks (b) took {time.perf_counter() - t0:.1f} s",
           flush=True)
-    return a["launches"], b[0]["launches"], b[1]["launches"]
+    return a["launches"], b[0]["launches"], b[1]["launches"], block_launches
 
 
 def bound(nbytes: int, ops: int):
@@ -3726,8 +4067,8 @@ def main() -> int:
         with Phase("tools", 300):
             phase_tools(tmp, dev)
         with Phase("mesh", 600):
-            mesh_launches, rank0_launches, rank1_launches = phase_mesh(
-                tmp, dev, errs)
+            (mesh_launches, rank0_launches, rank1_launches,
+             mesh_block_launches) = phase_mesh(tmp, dev, errs)
     torch.cuda.synchronize()
     cuda_lib.check_guards()  # no kernel found its inputs out of contract
     table = kernel_table(rows + large_rows + carry_rows, errs, {
@@ -3743,7 +4084,8 @@ def main() -> int:
         "mesh_1x2_rank1_steps": rank1_launches,
         "pre_aligned_garden_frame": pre_launches,
         "fast_presort_render_frame": fast_launches,
-        "scan_frame": scan_launches, **bench_launches, **graph_launches})
+        "scan_frame": scan_launches, **bench_launches, **graph_launches,
+        **mesh_block_launches})
     print(json.dumps({"kernels": table}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3752,5 +4094,19 @@ def main() -> int:
     return 0
 
 
+def mesh_cli(argv) -> int:
+    """Phase mesh (e)'s rank under torchrun: the train CLI with argv, then
+    the graph runners' captures and replays on a line of their own."""
+    from tpugs_torch.apps.train import main as train_main
+    from tpugs_torch.train.graph import BlockRunner
+
+    rc = train_main(argv)
+    print(f"graph: captures {BlockRunner.captures_total} replays "
+          f"{BlockRunner.replays_total}", flush=True)
+    return rc
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-cli"]:
+        sys.exit(mesh_cli(sys.argv[2:]))
     sys.exit(main())

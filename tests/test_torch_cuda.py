@@ -947,3 +947,89 @@ def test_graphed_multi_step_equals_eager_steps(dev, mode):
     assert torch.equal(state.adc.grad_accum, ref.adc.grad_accum)
     runner = multi.graphed[dev].runner
     assert runner.captures == 1 and runner.replays == 2 * k - 2
+
+
+@pytest.mark.parametrize("mode", ["adc", "mcmc"])
+def test_graphed_dist_multi_step_equals_eager_steps(dev, mode):
+    """make_dist_multi_step on a 1x1 mesh without a process group (every
+    collective the identity, so the block is captured) against
+    make_dist_train_step called step by step from the same state: two
+    blocks, losses, the mesh statistics and every tensor of the state
+    bit-equal; MCMC's noise drawn alike from the shard's seed."""
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.parallel.dist_train import (make_dist_multi_step,
+                                                 make_dist_train_step)
+    from tpugs_torch.parallel.mesh import make_mesh
+    from tpugs_torch.train.trainer import TrainConfig, TrainState, initial_key
+
+    w, h, n, k = 192, 128, 2000, 5
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=16, tile_w=16,
+                       pair_capacity=1 << 16, max_hits_per_tile=2048)
+    mesh = make_mesh((1, 1), device=dev)
+    p = params_from_numpy(synthetic_params_numpy(n, seed=1), dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    state = TrainState(params=p, alive=alive, adam=adam_init(p),
+                       adc=adc_init(n, dev), key=initial_key(7))
+    rng = np.random.default_rng(0)
+    bank = torch.from_numpy(rng.random((3, h, w, 3), dtype=np.float32)).to(dev)
+    vms = torch.eye(4, device=dev).expand(3, 4, 4).contiguous()
+    intr = torch.as_tensor(synthetic_intrinsics_numpy(w, h),
+                           device=dev).expand(3, 4).contiguous()
+    tcfg = TrainConfig(densify_mode=mode, dist_send_capacity=n)
+    multi = make_dist_multi_step(tcfg, cfg, mesh, 1.0)
+    step = make_dist_train_step(tcfg, cfg, mesh, 1.0)
+    ref = state
+    for block in range(2):
+        vi = rng.integers(0, 3, k)
+        state, losses, stats = multi(state, bank, vms, intr, vi, block * k, 3)
+        for j, v in enumerate(vi):
+            ref, st = step(ref, bank[v], vms[v], intr[v],
+                           torch.full((), float(block * k + j), device=dev), 3)
+            assert torch.equal(losses[j], st.loss), (block, j)
+        for f in ("num_pairs", "max_local_pairs", "max_send_count",
+                  "send_overflow", "max_tile_hits"):
+            assert torch.equal(getattr(stats, f), getattr(st, f)), f
+    for name in NAMES:
+        assert torch.equal(state.params[name], ref.params[name]), name
+        assert torch.equal(state.adam.v[name], ref.adam.v[name]), name
+    assert torch.equal(state.adc.grad_accum, ref.adc.grad_accum)
+    runner = multi.graphed[dev].runner
+    assert runner.captures == 1 and runner.replays == 2 * k - 2
+
+
+def test_blocks_shorter_than_the_warm_up_capture(dev):
+    """Blocks of one step (a Trainer whose schedule makes K = 1): the first
+    two run eagerly as the key's warm-up, the third captures and replays,
+    and every later one replays."""
+    from tpugs_torch.optim.adam import adam_init
+    from tpugs_torch.optim.densify_adc import adc_init
+    from tpugs_torch.train.trainer import (TrainConfig, TrainState,
+                                           initial_key, make_train_multi_step,
+                                           make_train_step)
+
+    w, h, n = 96, 64, 500
+    cfg = RasterConfig(img_h=h, img_w=w, tile_h=16, tile_w=16,
+                       pair_capacity=1 << 15, max_hits_per_tile=1024)
+    p = params_from_numpy(synthetic_params_numpy(n, seed=2), dev)
+    state = TrainState(params=p, alive=torch.ones(n, dtype=torch.bool,
+                                                  device=dev),
+                       adam=adam_init(p), adc=adc_init(n, dev),
+                       key=initial_key(3))
+    target = torch.rand((1, h, w, 3), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0))
+    vm = torch.eye(4, device=dev)[None]
+    intr = torch.as_tensor(synthetic_intrinsics_numpy(w, h), device=dev)[None]
+    tcfg = TrainConfig(densify_mode="adc")
+    multi = make_train_multi_step(tcfg, cfg, 1.0)
+    step = make_train_step(tcfg, cfg, 1.0)
+    ref = state
+    for i in range(5):
+        state, losses, _ = multi(state, target, vm, intr, [0], i, 1)
+        ref, st = step(ref, target[0], vm[0], intr[0],
+                       torch.full((), float(i), device=dev), 1)
+        assert torch.equal(losses[0], st.loss), i
+    runner = multi.graphed[dev].runner
+    assert runner.captures == 1 and runner.replays == 3
+    for name in NAMES:
+        assert torch.equal(state.params[name], ref.params[name]), name

@@ -253,3 +253,283 @@ def cli_world(rank, world, scene, out):
                         "--log-every", "5", "--mesh", "data=2,gauss=1",
                         "--device", "cpu"])
     return rc, qrc
+
+
+# make_dist_multi_step (tests/test_torch_dist_multistep.py).
+
+_READS = ("item", "__bool__", "__int__", "__float__", "__index__", "tolist")
+
+
+class _EagerRunner:
+    """graph.BlockRunner with every replay replaced by an eager call of the
+    captured body (tests/test_torch_multistep.py's stand-in, here without
+    JAX): the card path's bookkeeping (static buffers, staged rows, the
+    step counter, generator re-seeding) on the CPU."""
+
+    captures_total = replays_total = 0
+
+    def __init__(self, device, width, generators=()):
+        self.device, self.width = device, width
+        self.generators = tuple(generators)
+        self.graphs, self.rows, self.losses = {}, None, None
+        self.counter = torch.zeros((1,), dtype=torch.int64)
+        self.captures = self.replays = 0
+        self.capture_seconds = []
+
+    def release(self, keep=lambda key: False):
+        for key in [k for k in self.graphs if not keep(k)]:
+            del self.graphs[key]
+
+    def stage(self, rows):
+        k = rows.shape[0]
+        if self.rows is None or self.rows.shape[0] < k:
+            self.rows = torch.zeros((max(k, 32), self.width))
+            self.losses = torch.zeros((max(k, 32),))
+            self.release()
+        self.rows[:k] = torch.from_numpy(np.asarray(rows, np.float32))
+        self.counter.zero_()
+
+    def row(self):
+        return self.rows.index_select(0, self.counter)[0]
+
+    def put_loss(self, loss):
+        self.losses.index_copy_(0, self.counter, loss.reshape(1))
+
+    def advance(self):
+        self.counter.add_(1)
+
+    def run(self, key, k, body, before_step=None):
+        if key not in self.graphs:
+            self.graphs[key] = body
+            self.captures += 1
+        for j in range(k):
+            if before_step is not None:
+                before_step(j)
+            self.graphs[key]()
+        self.replays += k
+        return 0
+
+
+class _NoHostReads:
+    """Tensor.item, __bool__, __int__, __float__, __index__ and tolist raise
+    while it is entered, except inside the kernels' plain versions, which
+    read by design and never run on the card (their wrappers launch the
+    kernels there)."""
+
+    PLAIN = (("composite_t", "composite_forward_plain"),
+             ("composite_t", "composite_backward_plain"),
+             ("segreduce", "segment_sum_sorted_plain"),
+             ("segreduce", "segment_reduce_plain"),
+             ("pack", "align_copy_plain"), ("expand", "expand_pairs_plain"))
+
+    def __init__(self):
+        self.allowed = 0
+
+    def __enter__(self):
+        import importlib
+
+        self.saved = {n: getattr(torch.Tensor, n) for n in _READS}
+        self.plain = []
+        for n in _READS:
+            setattr(torch.Tensor, n, self._guard(n))
+        for mod, name in self.PLAIN:
+            m = importlib.import_module(f"tpugs_torch.ops.{mod}")
+            fn = getattr(m, name)
+            self.plain.append((m, name, fn))
+            setattr(m, name, self._allow(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(torch.Tensor, n, fn)
+        for m, name, fn in self.plain:
+            setattr(m, name, fn)
+
+    def _guard(self, name):
+        real = self.saved[name]
+
+        def read(*a, **k):
+            if self.allowed:
+                return real(*a, **k)
+            raise AssertionError(f"a host read: Tensor.{name}")
+        return read
+
+    def _allow(self, fn):
+        def plain(*a, **k):
+            self.allowed += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self.allowed -= 1
+        return plain
+
+
+def _state_diffs(a, b) -> list:
+    """The tensors of two TrainStates that are not bit-equal, by name."""
+    pairs = [(f"params/{k}", a.params[k], b.params[k]) for k in a.params]
+    pairs += [(f"adam_m/{k}", a.adam.m[k], b.adam.m[k]) for k in a.params]
+    pairs += [(f"adam_v/{k}", a.adam.v[k], b.adam.v[k]) for k in a.params]
+    pairs += [("adam_count", a.adam.count, b.adam.count),
+              ("alive", a.alive, b.alive)]
+    pairs += [(f"adc/{f}", getattr(a.adc, f), getattr(b.adc, f))
+              for f in ("grad_accum", "grad_count", "max_radii")]
+    out = [name for name, x, y in pairs if not torch.equal(x, y)]
+    if not (np.asarray(a.key) == np.asarray(b.key)).all():
+        out.append("key")
+    return out
+
+
+def _stats_np(stats) -> dict:
+    import dataclasses
+
+    return {f.name: _np(getattr(stats, f.name))
+            for f in dataclasses.fields(stats)
+            if getattr(stats, f.name) is not None}
+
+
+def dist_multistep_jax_world(rank, world, cases, raster, extent):
+    """make_dist_multi_step on this rank of a data=2,gauss=2 mesh, per case:
+    the global state (tpugs', as numpy) sharded onto the rank, its data
+    row's block of the bank, its column of the [K, D] view draw. Returns
+    per case the losses, the last stats and the data row's gathered
+    state."""
+    from tpugs_torch.core.gaussians import train_state_from_numpy
+    from tpugs_torch.parallel.dist_train import (gathered_numpy_state,
+                                                 make_dist_multi_step,
+                                                 shard_numpy_state)
+    from tpugs_torch.train.trainer import TrainConfig
+
+    raster = RasterConfig(**raster)
+    mesh = make_mesh((2, 2), device="cpu")
+    i = mesh.data_index
+    out = {}
+    for name, c in cases.items():
+        state = train_state_from_numpy(shard_numpy_state(c["flat"], mesh),
+                                       "cpu")
+        vpr = c["images"].shape[0] // mesh.data
+        row = slice(i * vpr, (i + 1) * vpr)
+        multi = make_dist_multi_step(TrainConfig(**c["cfg"]), raster, mesh,
+                                     extent)
+        state, losses, stats = multi(
+            state, _t(c["images"][row]), _t(c["viewmats"][row]),
+            _t(c["intrinsics"][row]), c["view_idx"][:, i], c["step0"],
+            c["sh_degree"])
+        out[name] = dict(losses=_np(losses), stats=_stats_np(stats),
+                         state=gathered_numpy_state(mesh, state))
+    return out
+
+
+def dist_multistep_world(rank, world, scene, out):
+    """On a data=1,gauss=2 mesh from a Trainer's state two steps in: (a) per
+    densify mode, the multi-step against K make_dist_train_step calls; (b)
+    per mode, the graphed path (graph.BlockRunner made eager) over two
+    blocks with an event between, against the eager multi-step, under no
+    host reads; (c) Trainers whose blocks run the graphed path against
+    eager ones. Returns what differs, the counts and the losses."""
+    import dataclasses
+    import os
+
+    from tpugs_torch.optim.densify_adc import ADCConfig
+    from tpugs_torch.parallel import dist_train as DT
+    from tpugs_torch.train import graph
+    from tpugs_torch.train import trainer as TT
+
+    base = dict(sh_degree=1, capacity=128, save_every=0, log_every=1,
+                pair_capacity=1 << 14, max_hits_per_tile=128, tile_h=16,
+                tile_w=16, auto_pair_capacity=False, mesh="data=1,gauss=2")
+    tr = TT.Trainer(scene, TT.TrainConfig(output_dir=os.path.join(out, "t"),
+                                          **base),
+                    log_fn=lambda *_: None, device="cpu")
+    tr.train(2)
+    mesh, raster, extent = tr.mesh, tr.raster, tr.scene_extent
+    bank = (tr._image_bank(), tr._viewmats, tr._intrinsics)
+    views = [np.asarray([1, 0, 2]), np.asarray([2, 2, 0])]
+    res = {}
+    for mode in ("adc", "mcmc", "none"):
+        cfg = dataclasses.replace(tr.cfg, densify_mode=mode)
+        # (a) K steps of the multi-step are K eager steps.
+        multi = DT.make_dist_multi_step(cfg, raster, mesh, extent)
+        step = DT.make_dist_train_step(cfg, raster, mesh, extent)
+        s_m, l_m, st_m = multi(tr.state, *bank, views[0], 2, 1)
+        ref, losses = tr.state, []
+        for j, v in enumerate(views[0]):
+            ref, st = step(ref, bank[0][v], bank[1][v], bank[2][v],
+                           torch.tensor(float(2 + j)), 1)
+            losses.append(st.loss)
+        res[f"steps_{mode}"] = dict(
+            diffs=_state_diffs(s_m, ref),
+            losses_equal=bool(torch.equal(l_m, torch.stack(losses))),
+            stats_equal=all(torch.equal(getattr(st_m, f), getattr(st, f))
+                            for f in _stats_np(st)),
+            graphed=len(multi.graphed))
+
+        # (b) The graphed path's bookkeeping.
+        real = graph.BlockRunner
+        graph.BlockRunner = _EagerRunner
+        try:
+            core = DT._make_dist_step_core(cfg, raster, mesh,
+                                           send_capacity=DT._send_capacity(
+                                               cfg, None))
+            g_multi = TT._multi_step_of(cfg, raster, core, mesh.gauss_index,
+                                        graphed_on=lambda dev: True)
+            event = (DT.make_dist_reset_opacity_step(mesh) if mode == "adc"
+                     else (lambda s: DT.make_dist_relocate_step(
+                         cfg, mesh, extent)(s)[0]))
+            s_g = s_e = tr.state
+            lg, le = [], []
+            for b, vi in enumerate(views):
+                with _NoHostReads():
+                    s_g, l_g, st_g = g_multi(s_g, *bank, vi, 2 + 3 * b, 1)
+                s_e, l_e, st_e = multi(s_e, *bank, vi, 2 + 3 * b, 1)
+                lg.append(l_g.clone())
+                le.append(l_e)
+                if b == 0:
+                    ptr = s_g.params["means"].data_ptr()
+                    s_g, s_e = event(s_g), event(s_e)
+        finally:
+            graph.BlockRunner = real
+        g = g_multi.graphed[torch.device("cpu")]
+        seed = None
+        if mode == "mcmc":  # the last step's: its key and the shard's index
+            seed = (g.noise.initial_seed(), TT._generator_seed(
+                s_e.key - np.asarray([0, 1], np.uint32), TT.NOISE_STREAM,
+                mesh.gauss_index))
+        res[f"graphed_{mode}"] = dict(
+            diffs=_state_diffs(s_g, s_e),
+            losses_equal=all(torch.equal(a, b) for a, b in zip(lg, le)),
+            stats_equal=all(torch.equal(getattr(st_g, f), getattr(st_e, f))
+                            for f in _stats_np(st_e)),
+            static=s_g.params["means"].data_ptr() == ptr,
+            captures=g.runner.captures, replays=g.runner.replays, seed=seed)
+
+    # (c) Trainers through the graphed block against eager ones.
+    runs = {"adc": dict(base, adc=ADCConfig(densify_from=4, densify_every=4,
+                                            densify_until=20,
+                                            opacity_reset_every=8)),
+            "send": dict(base, densify_mode="none", dist_send_capacity=1)}
+    for name, kw in runs.items():
+        finals = {}
+        for way in ("graphed", "eager"):
+            saved = DT._graphed_on
+            if way == "graphed":
+                DT._graphed_on = lambda dev, m: True
+                graph.BlockRunner = _EagerRunner
+            logs = []
+            try:
+                t = TT.Trainer(scene, TT.TrainConfig(
+                    output_dir=os.path.join(out, f"{name}_{way}"), **kw),
+                    log_fn=logs.append, device="cpu")
+                hist = t.train(12)
+            finally:
+                DT._graphed_on = saved
+                graph.BlockRunner = real
+            runner = [g.runner for g in t._multi_step.graphed.values()]
+            finals[way] = dict(
+                losses=[h["loss"] for h in hist],
+                state=DT.gathered_numpy_state(mesh, t.state),
+                send_capacity=t.cfg.dist_send_capacity,
+                events=[ln for ln in logs if "densify:" in ln
+                        or "opacity reset" in ln or "OVERFLOW" in ln],
+                replays=sum(r.replays for r in runner))
+        res[f"trainer_{name}"] = finals
+    return res

@@ -11,8 +11,12 @@ tpugs/parallel/dist_train.py:
   so every data row draws the same bits and the replicas of a shard stay
   bit-identical.
 
-tpugs runs K steps in one compiled scan; the port steps one step at a
-time, as its single-device Trainer does.
+A block of K steps (make_dist_multi_step, tpugs' one compiled scan)
+runs on the card as replays of the mesh step captured as a CUDA graph
+where the capture can hold every collective: on a mesh whose axes all
+have size 1 (no collective) or on NCCL. gloo takes card tensors through
+host memory and cannot be captured, so on a gloo mesh, and on the CPU,
+the block runs its K steps eagerly.
 
 Gradient normalisation (parallel/comm.py): a rank's raw gradient is
 d(its data row's loss)/d(its shard), and the mean over the data group is
@@ -26,9 +30,9 @@ ADC's densify event runs shard-local: each shard clones, splits and
 prunes within its own slots, so the initial slots are interleaved across
 shards (the Trainer). MCMC's relocation and growth sample globally
 (dist_mcmc.py). Event statistics are summed over the gauss group. The
-opacity reset touches each slot alone, so the Trainer's
-reset_opacity_step serves a shard as it is (tpugs'
-make_dist_reset_opacity_step wraps the same function in a shard_map).
+opacity reset touches each slot alone, so make_dist_reset_opacity_step
+is the Trainer's reset_opacity_step (tpugs wraps the same function in a
+shard_map).
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from tpugs_torch.device import device_constant
 from tpugs_torch.ops.projection import project_gaussians
 from tpugs_torch.ops.rasterize_tiled import RasterConfig
 from tpugs_torch.optim.adam import adam_step, zero_slots
@@ -252,31 +257,27 @@ def _step_stats(diag: dict, mesh: Mesh, raster: RasterConfig, loss, l1):
         max_send_count=m[..., 4].max())
 
 
-def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
-                         scene_extent: float, compositor: str = "auto"):
-    """One distributed training step on this rank, trainer.make_train_step's
-    contract on a shard: step(state, image, viewmat, intrinsics, step,
-    sh_degree) -> (state, StepStats), the view being this rank's data
-    row's. The exchange's slots per (source, destination):
-    cfg.dist_send_capacity when it is set, else the safe N/G. compositor:
-    tile_shard.exchange_and_render_local's ("scan": the scan oracle)."""
-    from tpugs_torch.train.trainer import (NOISE_STREAM, TrainState,
-                                           _background, event_generator)
-
+def _make_dist_step_core(cfg, raster: RasterConfig, mesh: Mesh,
+                         compositor: str = "auto",
+                         send_capacity: int | None = None):
+    """The mesh step's computation on explicit inputs, trainer's
+    _make_step_core contract on a shard: (state, image, viewmat,
+    intrinsics, step, sh_degree, background [3], noise generator) ->
+    (params, AdamState, ADCState, StepStats with the mesh fields), all new
+    tensors. send_capacity: the exchange's slots per (source,
+    destination), None for the safe N/G."""
     g, d = mesh.gauss, mesh.data
     local_cfg = local_raster_config(
         raster, g, default_local_pair_capacity(raster.pair_capacity, g))
     adc_mode = cfg.densify_mode == "adc"
     mcmc_mode = cfg.densify_mode == "mcmc"
-    grad_scale = torch.tensor([raster.img_w * 0.5, raster.img_h * 0.5],
-                              device=mesh.device)
+    half_wh = (raster.img_w * 0.5, raster.img_h * 0.5)
 
-    def step_fn(state: TrainState, image, viewmat, intrinsics, step,
-                sh_degree: int):
+    def core(state, image, viewmat, intrinsics, step, sh_degree: int,
+             background, noise_gen):
         dev = image.device
-        background = _background(state.key, cfg.random_background, dev)
         n_loc = state.alive.shape[0]
-        cap = cfg.dist_send_capacity if cfg.dist_send_capacity > 0 else n_loc
+        cap = send_capacity if send_capacity is not None else n_loc
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         proj = project_gaussians(
@@ -306,7 +307,7 @@ def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
             parts += [loss.detach().reshape(1), l1.reshape(1)]
             if adc_mode:
                 visible = proj.radii > 0
-                gs = grads[-1] * grad_scale
+                gs = grads[-1] * device_constant(half_wh, dev)
                 norms = torch.sqrt(torch.sum(gs * gs, dim=-1))
                 parts += [torch.where(visible, norms, torch.zeros_like(norms)),
                           visible.to(torch.float32)]
@@ -328,16 +329,97 @@ def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
                     grad_count=adc.grad_count + pieces[-1],
                     max_radii=torch.maximum(adc.max_radii, radii_max))
             if mcmc_mode:
-                new_params = inject_noise(
-                    cfg.mcmc, new_params, state.alive, step,
-                    event_generator(state.key, NOISE_STREAM, dev,
-                                    mesh.gauss_index))
+                new_params = inject_noise(cfg.mcmc, new_params, state.alive,
+                                          step, noise_gen)
             stats = _step_stats(diag, mesh, raster, loss_m, l1_m)
-        key = state.key + np.asarray([0, 1], np.uint32)
-        return TrainState(params=new_params, alive=state.alive, adam=new_adam,
-                          adc=adc, key=key), stats
+        return new_params, new_adam, adc, stats
 
-    return step_fn
+    return core
+
+
+def _send_capacity(cfg, send_capacity: int | None) -> int | None:
+    """The exchange's slots per (source, destination): the one asked for,
+    else cfg.dist_send_capacity when it is set, else None (the safe N/G)."""
+    if send_capacity is None and cfg.dist_send_capacity > 0:
+        return cfg.dist_send_capacity
+    return send_capacity
+
+
+def make_dist_train_step(cfg, raster: RasterConfig, mesh: Mesh,
+                         scene_extent: float, compositor: str = "auto"):
+    """One distributed training step on this rank, trainer.make_train_step's
+    contract on a shard: step(state, image, viewmat, intrinsics, step,
+    sh_degree) -> (state, StepStats), the view being this rank's data
+    row's. The exchange's slots per (source, destination):
+    cfg.dist_send_capacity when it is set, else the safe N/G. compositor:
+    tile_shard.exchange_and_render_local's ("scan": the scan oracle)."""
+    from tpugs_torch.train.trainer import _step_of
+
+    return _step_of(cfg, _make_dist_step_core(
+        cfg, raster, mesh, compositor, _send_capacity(cfg, None)),
+        mesh.gauss_index)
+
+
+def graph_capturable(mesh: Mesh) -> bool:
+    """Whether the mesh step can be captured as a CUDA graph: every axis
+    of size 1 (each collective is the identity) or NCCL (whose collectives
+    a capture records); gloo takes card tensors through host memory and
+    cannot be captured. It depends on the mesh alone, so every rank
+    decides alike."""
+    return mesh.size == 1 or mesh.backend == "nccl"
+
+
+def _graphed_on(dev: torch.device, mesh: Mesh) -> bool:
+    """Whether a block on `dev` runs as graph replays."""
+    return dev.type == "cuda" and graph_capturable(mesh)
+
+
+def make_dist_multi_step(cfg, raster: RasterConfig, mesh: Mesh,
+                         scene_extent: float, compositor: str = "auto",
+                         send_capacity: int | None = None):
+    """K distributed steps per call, tpugs' make_dist_multi_step (K steps in
+    one jitted scan over the mesh) on this rank:
+
+        multi_step(state, images [V_row, H, W, 3], viewmats [V_row, 4, 4],
+                   intrinsics [V_row, 4], view_idx [K], step0, sh_degree)
+          -> (state, losses [K], last StepStats)
+
+    images, viewmats, intrinsics: this rank's data row's view bank;
+    view_idx: this rank's column of the block's [K, D] draw of local view
+    indices, host ints; step0: the schedule step of the first step. Step j
+    is make_dist_train_step's step at schedule step step0 + j with the key
+    advanced j times. send_capacity: the exchange's slots per (source,
+    destination); by default cfg.dist_send_capacity when it is set, else
+    the safe N/G. compositor: make_dist_train_step's.
+
+    How a block runs is decided by the bank's device and the mesh alone
+    (graph_capturable), so every rank runs it alike: on the card, where
+    every axis has size 1 or the backend is NCCL, as replays of the mesh
+    step captured as a CUDA graph, trainer.make_train_multi_step's card
+    path (one staged copy of the block's view indices, schedule steps and
+    backgrounds before it, no host read and no copy from the host inside
+    it, its losses and stats read after it; MCMC's noise from a generator
+    registered with the graph, re-seeded before each step from the key
+    and the gauss shard's index; a failed capture raises); on the CPU, or
+    on a gloo mesh on the card, K eager make_dist_train_step steps. The
+    graphed block's state is its static buffers, as on one device."""
+    from tpugs_torch.train.trainer import _multi_step_of
+
+    core = _make_dist_step_core(cfg, raster, mesh, compositor,
+                                _send_capacity(cfg, send_capacity))
+    return _multi_step_of(
+        cfg, raster, core, mesh.gauss_index,
+        graphed_on=lambda dev: _graphed_on(dev, mesh))
+
+
+def make_dist_reset_opacity_step(mesh: Mesh):
+    """tpugs' make_dist_reset_opacity_step: the opacity reset on this
+    shard. It touches each slot alone and needs no collective, so the
+    single-device reset_opacity_step serves a shard as it is (tpugs wraps
+    the same function in a shard_map)."""
+    from tpugs_torch.train.trainer import reset_opacity_step
+
+    return reset_opacity_step
 
 
 def _sum_stats(stats: dict, mesh: Mesh) -> dict:

@@ -15,8 +15,10 @@ or copies from it; its caller reads the losses once after the block.
 The first steps for a new key (the SH degree) run eagerly, on the capture's
 side stream, as real steps of the run: they fill the lazy caches (the SSIM
 blur matrices, the device constants, the kernel library, the autograd
-engine's threads) before the capture. Then the step is captured once and
-replayed for the rest. A capture that fails raises: there is no eager
+engine's threads, a communicator's set-up) before the capture. They count
+across blocks, so blocks shorter than the warm-up capture too, from the
+block that completes it. Then the step is captured once and replayed for
+the rest. A capture that fails raises: there is no eager
 fallback on the card. The graphs of one runner share one memory pool;
 those whose key the caller says can no longer occur are released.
 
@@ -68,6 +70,7 @@ class BlockRunner:
         self.generators = tuple(generators)
         self.stream = torch.cuda.Stream(device)
         self.pool = torch.cuda.graph_pool_handle()
+        # key -> its graph, or the eager warm-up steps it has had so far
         self.graphs: dict = {}
         self.rows = None  # [capacity, width] f32: the staged inputs
         self.losses = None  # [capacity] f32: each step's loss
@@ -111,21 +114,22 @@ class BlockRunner:
 
     def run(self, key, k: int, body, before_step=None) -> int:
         """k steps of body(): replays of the graph for `key`, captured
-        first, after up to WARMUP_STEPS eager steps, if there is none.
-        before_step(j), if given, runs on the host before step j (it may
-        re-seed the generators). Returns the number of eager steps."""
+        first, once the key has had WARMUP_STEPS eager steps, if there is
+        none. before_step(j), if given, runs on the host before step j (it
+        may re-seed the generators). Returns the number of eager steps."""
         j = 0
-        graph = self.graphs.get(key)
-        if graph is None:
+        graph = self.graphs.get(key, 0)
+        if not isinstance(graph, torch.cuda.CUDAGraph):
             main = torch.cuda.current_stream(self.device)
             self.stream.wait_stream(main)
             with torch.cuda.stream(self.stream):
-                while j < min(WARMUP_STEPS, k):
+                while j < k and graph + j < WARMUP_STEPS:
                     if before_step is not None:
                         before_step(j)
                     body()
                     j += 1
             main.wait_stream(self.stream)
+            self.graphs[key] = graph + j
             if j == k:
                 return j
             graph = self._capture(body)

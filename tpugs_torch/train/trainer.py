@@ -9,11 +9,12 @@ make_train_step is the one step; make_train_multi_step runs a block of K
 steps, as the reference runs `steps_per_call` steps inside one compiled
 scan: on the card as replays of the step captured as a CUDA graph
 (train/graph.py), with no host read and no copy from the host inside the
-block; on the CPU eagerly, step by step. The single-device Trainer trains
-through it, and decides per block the views drawn (one numpy draw per
-block) and the schedule of logs, events, checkpoints, evaluations and
-overflow checks, reading the block's losses and statistics once after it.
-The image bank stays on the device.
+block; on the CPU eagerly, step by step. The Trainer trains through it
+(under a mesh through parallel/dist_train.make_dist_multi_step, the same
+block over the mesh step), and decides per block the views drawn (one
+numpy draw per block) and the schedule of logs, events, checkpoints,
+evaluations and overflow checks, reading the block's losses and
+statistics once after it. The image bank stays on the device.
 
 Densification events (ADC's opacity reset and densify, MCMC's relocate and
 grow) run eagerly after each block for the steps it covered, as the
@@ -21,11 +22,12 @@ reference's do. Their random draws come from torch.Generators seeded from
 the state's key (seed, steps taken) and a stream tag, so a resumed run
 draws what an uninterrupted one does.
 
-Under a mesh every rank runs this loop with the same schedule, its steps
-one by one: it holds its gauss shard of the state (the initial slots
-interleaved over the shards, so each starts with about N0/G alive
-gaussians and as many free slots) and its data row's views, and steps with
-parallel/dist_train.make_dist_train_step. All ranks draw the same (K, D)
+Under a mesh every rank runs this loop with the same schedule: it holds
+its gauss shard of the state (the initial slots interleaved over the
+shards, so each starts with about N0/G alive gaussians and as many free
+slots) and its data row's views, and runs its blocks through
+make_dist_multi_step (graphed or eager alike on every rank: the choice
+rests on the device and the mesh's backend). All ranks draw the same (K, D)
 local view indices per block; a rank takes its row's column. Checkpoints
 and evaluation gather the shards (every rank takes part; rank 0 writes and
 logs); a checkpoint is the whole state in its slot layout, so it loads on
@@ -248,20 +250,16 @@ def _make_step_core(cfg: TrainConfig, raster: RasterConfig):
     return core
 
 
-def make_train_step(cfg: TrainConfig, raster: RasterConfig,
-                    scene_extent: float):
-    """One training step: render with gradients, L1 + SSIM (+ MCMC's
-    regularization), Adam; ADC's gradient accumulation or MCMC's noise.
-    Outside ADC mode the step builds no screen-space probe. `step` is the
-    schedule step as a float32 scalar tensor; one on the device is read
-    there, one on the CPU is copied over."""
-    core = _make_step_core(cfg, raster)
+def _step_of(cfg: TrainConfig, core, shard: int | None = None):
+    """One train step from a step core: the background and MCMC's noise
+    generator drawn from the state's key (under a mesh the noise also from
+    the gauss shard's index), the key advanced once."""
     mcmc_mode = cfg.densify_mode == "mcmc"
 
     def train_step(state: TrainState, image, viewmat, intrinsics, step,
                    sh_degree: int):
         dev = image.device
-        noise = (event_generator(state.key, NOISE_STREAM, dev)
+        noise = (event_generator(state.key, NOISE_STREAM, dev, shard)
                  if mcmc_mode else None)
         params, adam, adc, stats = core(
             state, image, viewmat, intrinsics, step, sh_degree,
@@ -273,20 +271,33 @@ def make_train_step(cfg: TrainConfig, raster: RasterConfig,
     return train_step
 
 
+def make_train_step(cfg: TrainConfig, raster: RasterConfig,
+                    scene_extent: float):
+    """One training step: render with gradients, L1 + SSIM (+ MCMC's
+    regularization), Adam; ADC's gradient accumulation or MCMC's noise.
+    Outside ADC mode the step builds no screen-space probe. `step` is the
+    schedule step as a float32 scalar tensor; one on the device is read
+    there, one on the CPU is copied over."""
+    return _step_of(cfg, _make_step_core(cfg, raster))
+
+
 # Staged per-step inputs of a graphed block: view index, schedule step,
 # background r g b.
 _ROW = 5
-_STAT_FIELDS = ("loss", "l1", "num_pairs", "pair_overflow", "max_tile_hits",
-                "hit_overflow")
 
 
 class _GraphedSteps:
-    """make_train_multi_step's card path: the step's state in static
-    buffers, its per-step inputs staged rows (graph.BlockRunner)."""
+    """A multi-step's card path: the step's state in static buffers, its
+    per-step inputs staged rows (graph.BlockRunner). core: a step core
+    (_make_step_core's contract; by default the single-device one for
+    `raster`); shard: the gauss shard's index that MCMC's noise seed folds
+    in under a mesh. The statistics kept are the fields the core fills."""
 
-    def __init__(self, cfg: TrainConfig, raster: RasterConfig, device):
+    def __init__(self, cfg: TrainConfig, raster: RasterConfig, device,
+                 core=None, shard: int | None = None):
         self.cfg = cfg
-        self.core = _make_step_core(cfg, raster)
+        self.core = core if core is not None else _make_step_core(cfg, raster)
+        self.shard = shard
         self.adc_mode = cfg.densify_mode == "adc"
         self.noise = (torch.Generator(device=device)
                       if cfg.densify_mode == "mcmc" else None)
@@ -294,6 +305,7 @@ class _GraphedSteps:
             device, _ROW, () if self.noise is None else (self.noise,))
         self.buf = None  # TrainState of the static buffers
         self.stats = None  # StepStats of static buffers
+        self.stat_fields = None  # the StepStats fields the core fills
         self.bank = None  # the (images, viewmats, intrinsics) captured
 
     def _tensors(self, state: TrainState) -> list:
@@ -345,10 +357,13 @@ class _GraphedSteps:
                     if t is not b:
                         b.copy_(t)
                 if self.stats is None:
+                    self.stat_fields = [
+                        f.name for f in dataclasses.fields(StepStats)
+                        if getattr(stats, f.name) is not None]
                     self.stats = StepStats(**{
                         f: torch.empty_like(getattr(stats, f))
-                        for f in _STAT_FIELDS})
-                for f in _STAT_FIELDS:
+                        for f in self.stat_fields})
+                for f in self.stat_fields:
                     getattr(self.stats, f).copy_(getattr(stats, f))
                 runner.put_loss(stats.loss)
                 runner.advance()
@@ -375,7 +390,8 @@ class _GraphedSteps:
         self.runner.stage(rows)
         before = None
         if self.noise is not None:
-            seeds = [_generator_seed(key, NOISE_STREAM) for key in keys]
+            seeds = [_generator_seed(key, NOISE_STREAM, self.shard)
+                     for key in keys]
 
             def before(j):
                 self.noise.manual_seed(seeds[j])
@@ -392,7 +408,7 @@ class _GraphedSteps:
             adc=buf.adc if self.adc_mode else state.adc,
             key=key0 + np.asarray([0, k], np.uint32))
         stats = StepStats(**{f: getattr(self.stats, f).clone()
-                             for f in _STAT_FIELDS})
+                             for f in self.stat_fields})
         return out, self.runner.losses[:k].clone(), stats
 
 
@@ -425,7 +441,16 @@ def make_train_multi_step(cfg: TrainConfig, raster: RasterConfig,
     comes from a generator registered with the graph and re-seeded before
     each step with event_generator's seed, so it draws what the eager step
     draws. On the CPU the steps run eagerly, one by one."""
-    train_step = make_train_step(cfg, raster, scene_extent)
+    return _multi_step_of(cfg, raster, _make_step_core(cfg, raster))
+
+
+def _multi_step_of(cfg: TrainConfig, raster: RasterConfig, core,
+                   shard: int | None = None,
+                   graphed_on=lambda dev: dev.type == "cuda"):
+    """make_train_multi_step's block over a step core (_step_of's step K
+    times): through _GraphedSteps where graphed_on(the bank's device)
+    holds, else eagerly, step by step."""
+    train_step = _step_of(cfg, core, shard)
     graphed = {}  # device -> _GraphedSteps
 
     def multi_step(state: TrainState, images, viewmats, intrinsics, view_idx,
@@ -438,9 +463,9 @@ def make_train_multi_step(cfg: TrainConfig, raster: RasterConfig,
         vi = np.asarray(view_idx, np.int64).reshape(-1)
         step0 = float(step0)
         dev = images.device
-        if dev.type == "cuda":
+        if graphed_on(dev):
             if dev not in graphed:
-                graphed[dev] = _GraphedSteps(cfg, raster, dev)
+                graphed[dev] = _GraphedSteps(cfg, raster, dev, core, shard)
             return graphed[dev](state, images, viewmats, intrinsics, vi,
                                 step0, sh_degree)
         losses = []
@@ -649,6 +674,7 @@ class Trainer:
         if self.mesh is None:
             self._densify = make_densify_step(self.cfg, self.scene_extent)
             self._relocate = make_relocate_step(self.cfg, self.scene_extent)
+            self._reset_opacity = reset_opacity_step
         else:
             from tpugs_torch.parallel import dist_train as DT
 
@@ -657,6 +683,7 @@ class Trainer:
                                                       self.scene_extent)
             self._relocate = DT.make_dist_relocate_step(self.cfg, self.mesh,
                                                         self.scene_extent)
+            self._reset_opacity = DT.make_dist_reset_opacity_step(self.mesh)
             if self.cfg.dist_send_capacity < 0:
                 self._auto_send_capacity()
         self._build_train_step()
@@ -702,17 +729,15 @@ class Trainer:
         return vi if self.mesh is None else vi[:, self.mesh.data_index]
 
     def _build_train_step(self):
-        """The train step for the current raster config (again after the
-        capacities grow)."""
+        """The multi-step for the current raster config and exchange
+        capacity (again after they grow): a new one captures anew."""
         if self.mesh is None:
-            self._train_step = make_train_step(self.cfg, self.raster,
-                                               self.scene_extent)
             self._multi_step = make_train_multi_step(self.cfg, self.raster,
                                                      self.scene_extent)
         else:
-            from tpugs_torch.parallel.dist_train import make_dist_train_step
+            from tpugs_torch.parallel.dist_train import make_dist_multi_step
 
-            self._train_step = make_dist_train_step(
+            self._multi_step = make_dist_multi_step(
                 self.cfg, self.raster, self.mesh, self.scene_extent)
 
     def _auto_send_capacity(self):
@@ -854,19 +879,9 @@ class Trainer:
             k_blk = _block_length(step, k_max, iters)
             vi = self._draw_views(k_blk)
             sh_deg = active_sh_degree_for_step(step, cfg.sh_degree)
-            if self.mesh is None:
-                self.state, losses, stats = self._multi_step(
-                    self.state, images, self._viewmats, self._intrinsics, vi,
-                    step, sh_deg)
-            else:
-                losses = []
-                for j, v in enumerate(vi):
-                    self.state, stats = self._train_step(
-                        self.state, images[v], self._viewmats[v],
-                        self._intrinsics[v],
-                        torch.tensor(step + j, dtype=torch.float32), sh_deg)
-                    losses.append(stats.loss)
-                losses = torch.stack(losses)
+            self.state, losses, stats = self._multi_step(
+                self.state, images, self._viewmats, self._intrinsics, vi,
+                step, sh_deg)
             # The block's one host read; it waits for its last kernel, so a
             # contract violation found on the card raises before any log or
             # save.
@@ -885,7 +900,7 @@ class Trainer:
             for s in range(prev, step):
                 if cfg.densify_mode == "adc":
                     if cfg.adc.should_reset_opacity(s):
-                        self.state = reset_opacity_step(self.state)
+                        self.state = self._reset_opacity(self.state)
                         self.log(f"[{s}] opacity reset")
                     if cfg.adc.should_densify(s):
                         self.state, dstats = self._densify(
